@@ -1,0 +1,287 @@
+"""Single-shard classification pipeline on torch tensors — counterpart
+of ``monica_tpu/align/pipeline.py`` (``classify_shard``,
+``finalize_single``, ``count_reads``, ``classify_batch`` and the 2-bit
+packed entry).
+
+A read batch moves sketch -> seed lookup -> diagonal vote chaining ->
+budgeted banded-SW rescue -> finalize -> per-accession counts.  PyTorch
+runs eagerly, so there is no jit; every tensor lives on the device of
+the index it is classified against.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from monica_tpu_torch.index import minimizer as mz
+from monica_tpu_torch.index.build import IndexShard
+from monica_tpu_torch.ops import chain as ch
+from monica_tpu_torch.ops import extend as ex
+from monica_tpu_torch.ops import lookup as lk
+
+# read status codes
+UNMAPPED = 0
+MAPPED = 1
+AMBIGUOUS = 2
+
+# count modes
+MODE_BASIC = 0
+MODE_QUERY_LENGTH = 1
+MODE_MATCHING = 2
+COUNT_MODES = {"basic": MODE_BASIC, "query_length": MODE_QUERY_LENGTH, "matching": MODE_MATCHING}
+
+
+class DeviceIndexShard(NamedTuple):
+    """One index shard as device tensors."""
+
+    mz_rows: torch.Tensor  # (2^rbits, ROW_SLOTS) int32 bit pattern of u32 entries
+    pos_acc: torch.Tensor  # (T,) int32 position -> accession id
+    ref_codes: torch.Tensor  # (T,) uint8 packed reference
+
+
+def index_tensors(mz_rows: np.ndarray, pos_acc: np.ndarray, ref_codes: np.ndarray,
+                  device) -> DeviceIndexShard:
+    """numpy index arrays (uint32 table, uint16 pos_acc, uint8 codes)
+    -> device tensors (copies, so read-only inputs are fine); pos_acc is
+    widened to int32 on load."""
+    return DeviceIndexShard(
+        mz_rows=torch.from_numpy(np.array(mz_rows, dtype=np.uint32).view(np.int32)).to(device),
+        pos_acc=torch.from_numpy(np.array(pos_acc, dtype=np.int32)).to(device),
+        ref_codes=torch.from_numpy(np.array(ref_codes, dtype=np.uint8)).to(device),
+    )
+
+
+def device_shard(shard: IndexShard, device) -> tuple[DeviceIndexShard, int]:
+    """Device tensors + the tag width of this shard's table."""
+    tag_bits = lk.tag_bits_for(len(shard.ref_codes))
+    rows = lk.build_hash_rows(shard.mz_hash, shard.mz_pos, shard.mz_strand, tag_bits)
+    return index_tensors(rows, shard.pos_accession_id, shard.ref_codes, device), tag_bits
+
+
+class ClassifyParams(NamedTuple):
+    """Pipeline parameters; same fields and defaults as the reference's
+    ``ClassifyParams`` (see there for the rationale of each default)."""
+
+    k: int = mz.K_DEFAULT
+    w: int = mz.W_DEFAULT
+    frac: float = mz.FRAC_DEFAULT  # scaled winnowing; must match the index
+    n_slots: int = 128  # minimizer slots per read
+    mapping_quality: float = 60.0
+    min_votes: int = 3
+    tag_bits: int = 8  # packed-entry tag width (device_shard returns it)
+    extend: bool = True  # banded-SW extension / rescue
+    band: int = 64
+    extend_impl: str = "auto"  # "cuda" | "torch" | "auto" (by tensor device)
+    extend_mode: str = "rescue"  # "full": SW on every read
+    rescue_frac: float = 0.125  # first rescue slot budget as batch fraction
+    rescue_nm_rate: float = 0.35
+    rescue_min_cov: float = 0.5
+    rescue_min_votes: int = 1
+    anchors_per_seed: int = 2
+    tie_rel_tol: float = 0.10  # cross-shard tie bands (multi-shard merge,
+    vote_tie_sd: float = 1.0  # not ported yet)
+
+
+class ShardHit(NamedTuple):
+    """Per-read best candidate within one index shard."""
+
+    acc_id: torch.Tensor  # (B,) int32
+    inv_identity: torch.Tensor  # (B,) f32 NM/mlen analog
+    merge_cost: torch.Tensor  # (B,) f32 vote-statistical cost
+    mlen: torch.Tensor  # (B,) int32
+    mapq: torch.Tensor  # (B,) f32
+    votes: torch.Tensor  # (B,) int32
+    passed: torch.Tensor  # (B,) bool
+    rc: torch.Tensor  # (B,) bool
+    ref_pos: torch.Tensor  # (B,) int32
+    tied: torch.Tensor  # (B,) bool
+
+
+def params_for_bucket(params: ClassifyParams, bucket_len: int) -> ClassifyParams:
+    """Buckets > 512 bp run 64 seed slots, shorter ones keep 128."""
+    if bucket_len > 512 and params.n_slots > 64:
+        return params._replace(n_slots=64)
+    return params
+
+
+def sketch_batch(codes: torch.Tensor, lengths: torch.Tensor, params: ClassifyParams):
+    """Read sketch with slots beyond each read's true length masked."""
+    qh, qp, qs, qv = mz.sketch_reads(codes, params.n_slots, params.k, params.w,
+                                     frac=params.frac)
+    qv = qv & (qp < (lengths[:, None] - params.k + 1))
+    return qh, qp, qs, qv
+
+
+def classify_shard(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.Tensor,
+                   params: ClassifyParams) -> ShardHit:
+    """Best hit of every read against one shard."""
+    B, L = codes.shape
+    qh, qp, qs, qv = sketch_batch(codes, lengths, params)
+    key, diag, rpos, fpos = lk.lookup_anchors(
+        index.mz_rows, qh, qp, qs, qv, tag_bits=params.tag_bits, bucket_len=L,
+        anchors_per_seed=params.anchors_per_seed,
+    )
+    res = ch.chain_votes(key, diag, rpos, fpos, max_run=min(128, params.n_slots))
+    mapq = ch.mapq_from_votes(res.f1, res.f2)
+
+    # anchor-count identity estimate: votes/slots ~ id^k
+    n_valid = torch.clamp(qv.sum(dim=-1), min=1).to(torch.float32)
+    frac = torch.clamp(res.f1.to(torch.float32) / n_valid, 1e-6, 1.0)
+    identity = torch.exp(torch.log(frac) / params.k)
+    lf = lengths.to(torch.float32)
+    mlen = torch.clamp(identity * lf, min=1.0)
+    inv_identity = (1.0 - identity) / torch.clamp(identity, min=1e-6)
+    stat_cost = inv_identity
+
+    passed = (mapq >= params.mapping_quality) & (res.f1 >= params.min_votes) & (lengths > 0)
+
+    def extend(sel):  # banded SW of the selected reads at their chained locus
+        return ex.extend_hits(
+            index.ref_codes, codes[sel], lengths[sel], res.rep_ref_pos[sel],
+            res.rep_read_pos[sel], res.rc[sel], k=params.k,
+            p=ex.ExtendParams(band=params.band), impl=params.extend_impl,
+        )
+
+    if params.extend and params.extend_mode == "full":
+        ext = extend(slice(None))
+        mlen = ext.mlen.to(torch.float32)
+        inv_identity = ext.inv_identity
+        rescued = (
+            (res.f1 >= params.rescue_min_votes)
+            & (res.f2 * 2 <= res.f1)
+            & (ext.inv_identity <= params.rescue_nm_rate)
+            & (ext.mlen.to(torch.float32) >= params.rescue_min_cov * lf)
+            & (lengths > 0)
+        )
+        passed = passed | rescued
+    elif params.extend and params.extend_mode == "rescue":
+        # budgeted rescue: SW only on unique-locus reads that failed the
+        # vote gate, compacted into B/8, B/2 or B slots by the candidate
+        # count.  The reference picks the tier with nested lax.conds on
+        # the device; here int(n_cand) decides on the host, which costs
+        # one device->host sync per batch.
+        cand = ~passed & (res.f1 >= params.rescue_min_votes) & (res.f2 * 2 <= res.f1) & (lengths > 0)
+        n_cand = int(cand.sum())
+        if n_cand > 0:
+            n8 = max(int(B * params.rescue_frac), 1)
+            n2 = max(B // 2, 1)
+            n_slots = n8 if n_cand <= n8 else n2 if n_cand <= n2 else B
+            order = torch.argsort(torch.where(cand, 0, 1), stable=True)
+            idx = order[:n_slots]
+            ext = extend(idx)
+            ok = (
+                cand[idx]
+                & (ext.inv_identity <= params.rescue_nm_rate)
+                & (ext.mlen.to(torch.float32) >= params.rescue_min_cov * lf[idx])
+            )
+            rescued = torch.zeros_like(cand).index_put_((idx,), ok)
+            inv_sc = torch.zeros_like(inv_identity).index_put_(
+                (idx,), torch.where(ok, ext.inv_identity, 0.0))
+            mlen_sc = torch.zeros_like(mlen).index_put_(
+                (idx,), torch.where(ok, ext.mlen.to(mlen.dtype), 0.0))
+            passed = passed | rescued
+            inv_identity = torch.where(rescued, inv_sc, inv_identity)
+            mlen = torch.where(rescued, mlen_sc, mlen)
+
+    T = index.pos_acc.shape[0]
+    acc_id = index.pos_acc[torch.clamp(res.rep_ref_pos, 0, T - 1).long()]
+    acc2 = index.pos_acc[torch.clamp(res.rep2_ref_pos, 0, T - 1).long()]
+    tied = (res.f2 == res.f1) & (res.f1 >= params.min_votes) & (acc2 != acc_id) & (lengths > 0)
+    return ShardHit(
+        acc_id=acc_id.to(torch.int32),
+        inv_identity=inv_identity,
+        merge_cost=stat_cost,
+        mlen=mlen.to(torch.int32),
+        mapq=mapq,
+        votes=res.f1,
+        passed=passed & ~tied,
+        rc=res.rc,
+        ref_pos=res.rep_ref_pos,
+        tied=tied,
+    )
+
+
+class ReadResult(NamedTuple):
+    """Final per-read classification."""
+
+    status: torch.Tensor  # (B,) int32 UNMAPPED/MAPPED/AMBIGUOUS
+    acc_id: torch.Tensor  # (B,) int32 (-1 when not mapped)
+    inv_identity: torch.Tensor  # (B,) f32
+    mlen: torch.Tensor  # (B,) int32
+    mapq: torch.Tensor  # (B,) f32
+    rc: torch.Tensor  # (B,) bool
+
+
+def finalize_single(hit: ShardHit) -> ReadResult:
+    status = torch.where(hit.passed, MAPPED, torch.where(hit.tied, AMBIGUOUS, UNMAPPED))
+    return ReadResult(
+        status=status.to(torch.int32),
+        acc_id=torch.where(hit.passed, hit.acc_id, -1),
+        inv_identity=hit.inv_identity,
+        mlen=torch.where(hit.passed, hit.mlen, 0),
+        mapq=hit.mapq,
+        rc=hit.rc,
+    )
+
+
+def count_reads(result: ReadResult, lengths: torch.Tensor, n_accessions: int,
+                count_mode: int) -> torch.Tensor:
+    """Per-accession int32 counts of this batch: basic = 1,
+    query_length = read length, matching = mlen per mapped read.
+    Unmapped reads go to an overflow bucket that is dropped."""
+    if count_mode == MODE_BASIC:
+        value = torch.ones_like(lengths)
+    elif count_mode == MODE_QUERY_LENGTH:
+        value = lengths
+    else:
+        value = result.mlen
+    mapped = result.status == MAPPED
+    seg = torch.where(mapped, result.acc_id, n_accessions).long()
+    counts = torch.zeros(n_accessions + 1, dtype=torch.int32, device=lengths.device)
+    counts.index_add_(0, seg, torch.where(mapped, value, 0).to(torch.int32))
+    return counts[:n_accessions]
+
+
+def classify_batch(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.Tensor,
+                   params: ClassifyParams, n_accessions: int,
+                   count_mode: int = MODE_QUERY_LENGTH):
+    """Single-shard end-to-end step: reads -> (ReadResult, counts)."""
+    result = finalize_single(classify_shard(index, codes, lengths, params))
+    return result, count_reads(result, lengths, n_accessions, count_mode)
+
+
+def unpack_codes(packed: torch.Tensor, read_len: int) -> torch.Tensor:
+    """Inverse of ``io.encode.pack_codes_2bit``: (B, ceil(L/4)) uint8
+    wire bytes -> (B, L) uint8 base codes."""
+    B, P = packed.shape
+    shifts = torch.arange(4, dtype=torch.uint8, device=packed.device) * 2
+    c = (packed[:, :, None] >> shifts[None, None, :]) & 3
+    return c.reshape(B, P * 4)[:, :read_len].contiguous()
+
+
+def classify_batch_packed(index, packed, lengths, read_len, params, n_accessions,
+                          count_mode=MODE_QUERY_LENGTH):
+    """classify_batch on 2-bit packed wire input."""
+    return classify_batch(index, unpack_codes(packed, read_len), lengths, params,
+                          n_accessions, count_mode)
+
+
+def pack_results(result: ReadResult, counts: torch.Tensor) -> torch.Tensor:
+    """Everything the host consumes in ONE int32 tensor (one transfer):
+    rows [status, acc_id, mlen], then ceil(n_acc/B) rows of the
+    zero-padded count vector."""
+    B = result.status.shape[0]
+    counts = counts.reshape(-1)
+    n_acc = counts.shape[0]
+    rows = -(-n_acc // B)
+    cpad = torch.zeros(rows * B, dtype=torch.int32, device=counts.device)
+    cpad[:n_acc] = counts
+    return torch.cat([
+        result.status[None].to(torch.int32),
+        result.acc_id[None].to(torch.int32),
+        result.mlen[None].to(torch.int32),
+        cpad.reshape(rows, B),
+    ])

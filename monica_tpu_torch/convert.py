@@ -1,0 +1,51 @@
+"""Carry the reference's state across to the port.
+
+Takes the JAX package's objects duck-typed — every array field is read
+through ``np.asarray`` — so this module never imports jax; a caller
+holding jax arrays converts them by the same ``np.asarray``.  Used to
+classify with both packages against the very same index.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from monica_tpu_torch.align import pipeline as pl
+from monica_tpu_torch.index.build import BuiltIndex, IndexMeta, IndexShard
+
+_SHARD_FIELDS = (
+    "ref_codes", "seq_starts", "seq_lengths", "seq_accession_id",
+    "mz_hash", "mz_pos", "mz_strand", "pos_accession_id",
+)
+_IMPL = {"pallas": "cuda", "jnp": "torch", "auto": "auto"}
+
+
+def built_from_reference(ref_built) -> BuiltIndex:
+    """A reference ``BuiltIndex`` (host shards) -> the port's."""
+    m = ref_built.meta
+    meta = IndexMeta(
+        tax_units=list(m.tax_units),
+        accessions=list(m.accessions),
+        genome_lengths=np.asarray(m.genome_lengths),
+        k=m.k, w=m.w, frac=m.frac, occ_cap=m.occ_cap,
+    )
+    shards = [
+        IndexShard(**{f: np.asarray(getattr(s, f)) for f in _SHARD_FIELDS})
+        for s in ref_built.shards
+    ]
+    return BuiltIndex(meta=meta, shards=shards)
+
+
+def device_shard_from_reference(mz_rows, pos_acc, ref_codes, device) -> pl.DeviceIndexShard:
+    """The three arrays of a reference ``DeviceIndexShard`` (uint32
+    table, uint16 pos_acc, uint8 codes) -> the port's on ``device``."""
+    return pl.index_tensors(np.asarray(mz_rows), np.asarray(pos_acc),
+                            np.asarray(ref_codes), device)
+
+
+def params_from_reference(ref_params) -> pl.ClassifyParams:
+    """Reference ``ClassifyParams`` -> the port's; ``extend_impl``
+    maps "pallas" -> "cuda" and "jnp" -> "torch"."""
+    d = ref_params._asdict()
+    d["extend_impl"] = _IMPL[d["extend_impl"]]
+    return pl.ClassifyParams(**d)
