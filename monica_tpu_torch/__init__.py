@@ -1,11 +1,12 @@
 """monica_tpu_torch — the PyTorch/CUDA port of monica_tpu.
 
 The JAX package ``monica_tpu`` is the reference; this package mirrors
-its layout (``index/``, ``ops/``, ``align/``) so each module's
-counterpart is easy to find, and imports ``torch`` and never ``jax``
-nor ``monica_tpu``: the host pieces it needs (FASTA reading, base
-encoding and the 2-bit wire format, the synthetic community and read
-simulators) have counterparts here (``io/``, ``evaluation.py``).
+its layout (``index/``, ``ops/``, ``align/``, ``io/``, ``stats/``,
+``utils/``) so each module's counterpart is easy to find, and imports
+``torch`` and never ``jax``, ``monica_tpu`` or pandas: the host pieces
+it needs (FASTA/FASTQ reading, the native FASTQ parser, base encoding
+and the 2-bit wire format, metrics, the abundance tables, the synthetic
+communities and read simulators) have counterparts here.
 
 Conventions:
 
@@ -19,7 +20,10 @@ Conventions:
   (``ops/csrc/banded_sw.cu``) with a plain PyTorch version beside it;
   a CPU tensor takes the plain version, a CUDA tensor the kernel.
 
-Ported so far: the single-shard classify path (sketch -> lookup ->
-chain -> rescue extension -> finalize/count), the host index build and
-a single-shard ``Classifier``.  See ROADMAP.md for what comes next.
+Ported so far: the classify path (sketch -> lookup -> chain -> rescue
+extension -> finalize, or the cross-shard merge of a multi-shard index
+-> count), the host index build, the ``Classifier`` and the
+single-process streaming runtime (``run_once`` / ``watch``: a folder of
+FASTQ samples to routed reads and abundance tables).  See ROADMAP.md
+for what comes next.
 """

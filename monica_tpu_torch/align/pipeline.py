@@ -1,12 +1,17 @@
-"""Single-shard classification pipeline on torch tensors — counterpart
-of ``monica_tpu/align/pipeline.py`` (``classify_shard``,
-``finalize_single``, ``count_reads``, ``classify_batch`` and the 2-bit
-packed entry).
+"""Classification pipeline on torch tensors — counterpart of
+``monica_tpu/align/pipeline.py``: the single-shard step
+(``classify_shard``, ``finalize_single``, ``count_reads``,
+``classify_batch``), the multi-shard step over size-class groups of
+stacked shards (``stack_device_shard_groups``, ``merge_hits``,
+``classify_batch_grouped``), their 2-bit packed entries and the packed
+result transfer (``pack_results``, ``concat_packed``).
 
 A read batch moves sketch -> seed lookup -> diagonal vote chaining ->
-budgeted banded-SW rescue -> finalize -> per-accession counts.  PyTorch
-runs eagerly, so there is no jit; every tensor lives on the device of
-the index it is classified against.
+budgeted banded-SW rescue -> finalize (one shard) or cross-shard merge
+-> per-accession counts.  PyTorch runs eagerly, so there is no jit;
+every tensor lives on the device of the index it is classified against.
+The mesh stacking (``stack_mesh_shard_groups``) belongs to the
+multi-device step and is not ported yet.
 """
 
 from __future__ import annotations
@@ -61,6 +66,66 @@ def device_shard(shard: IndexShard, device) -> tuple[DeviceIndexShard, int]:
     return index_tensors(rows, shard.pos_accession_id, shard.ref_codes, device), tag_bits
 
 
+def stack_device_shards(shards: list[IndexShard], device, tag_bits: int) -> DeviceIndexShard:
+    """Shards padded to common sizes and stacked on a leading axis:
+    every shard gets the widest row-index width of the set and the tag
+    width ``tag_bits`` (that of the largest packed reference of the
+    whole index, so one ClassifyParams covers every group).
+    Table padding is all-zero rows (empty slots), ``pos_acc`` pads with
+    0 and ``ref_codes`` with PAD (4).  Each shard is copied straight
+    into the stacked device tensors, so the host never holds the stack."""
+    if not shards:
+        raise ValueError("cannot stack an empty shard list")
+    T = max(len(s.ref_codes) for s in shards)
+    rbits = max(lk.row_bits_for(s.n_minimizers) for s in shards)
+    S = len(shards)
+    out = DeviceIndexShard(
+        mz_rows=torch.empty((S, 1 << rbits, lk.ROW_SLOTS), dtype=torch.int32, device=device),
+        pos_acc=torch.zeros((S, T), dtype=torch.int32, device=device),
+        ref_codes=torch.full((S, T), 4, dtype=torch.uint8, device=device),
+    )
+    for i, sh in enumerate(shards):
+        rows = lk.build_hash_rows(sh.mz_hash, sh.mz_pos, sh.mz_strand, tag_bits, rbits)
+        out.mz_rows[i].copy_(torch.from_numpy(rows.view(np.int32)))
+        n = len(sh.pos_accession_id)
+        out.pos_acc[i, :n].copy_(torch.from_numpy(np.asarray(sh.pos_accession_id, np.int32)))
+        out.ref_codes[i, : len(sh.ref_codes)].copy_(
+            torch.from_numpy(np.ascontiguousarray(sh.ref_codes, np.uint8)))
+    return out
+
+
+def _size_class(n: int) -> int:
+    """Power-of-2 size class for shard grouping."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def stack_device_shard_groups(shards: list[IndexShard],
+                              device) -> tuple[tuple[DeviceIndexShard, ...], int]:
+    """Shards stacked by power-of-2 size class of their packed
+    reference, in ascending class order, so one oversized shard does
+    not pad every other shard to its size.  The tag width is common to
+    all groups (sized for the largest reference), so one ClassifyParams
+    covers every group.  Returns (stacked groups, common tag width)."""
+    if not shards:
+        raise ValueError("cannot stack an empty shard list")
+    tag_bits = lk.tag_bits_for(max(len(s.ref_codes) for s in shards))
+    by_class: dict[int, list[IndexShard]] = {}
+    for s in shards:
+        by_class.setdefault(_size_class(len(s.ref_codes)), []).append(s)
+    groups = tuple(stack_device_shards(by_class[c], device, tag_bits)
+                   for c in sorted(by_class))
+    return groups, tag_bits
+
+
+def stacked_nbytes(groups) -> int:
+    """Device bytes of a stacked group or a tuple of them.  ``pos_acc``
+    is int32 here (4 B/base; the JAX package keeps it as uint16)."""
+    total = 0
+    for g in groups if isinstance(groups, tuple) else (groups,):
+        total += sum(t.numel() * t.element_size() for t in g)
+    return total
+
+
 class ClassifyParams(NamedTuple):
     """Pipeline parameters; same fields and defaults as the reference's
     ``ClassifyParams`` (see there for the rationale of each default)."""
@@ -81,8 +146,8 @@ class ClassifyParams(NamedTuple):
     rescue_min_cov: float = 0.5
     rescue_min_votes: int = 1
     anchors_per_seed: int = 2
-    tie_rel_tol: float = 0.10  # cross-shard tie bands (multi-shard merge,
-    vote_tie_sd: float = 1.0  # not ported yet)
+    tie_rel_tol: float = 0.10  # cross-shard near-tie band on merge_cost
+    vote_tie_sd: float = 1.0  # cross-shard tie band in vote space (0 = off)
 
 
 class ShardHit(NamedTuple):
@@ -108,7 +173,8 @@ def params_for_bucket(params: ClassifyParams, bucket_len: int) -> ClassifyParams
 
 
 def sketch_batch(codes: torch.Tensor, lengths: torch.Tensor, params: ClassifyParams):
-    """Read sketch with slots beyond each read's true length masked."""
+    """Read sketch with slots beyond each read's true length masked;
+    shard-independent, so the multi-shard step computes it once."""
     qh, qp, qs, qv = mz.sketch_reads(codes, params.n_slots, params.k, params.w,
                                      frac=params.frac)
     qv = qv & (qp < (lengths[:, None] - params.k + 1))
@@ -116,10 +182,11 @@ def sketch_batch(codes: torch.Tensor, lengths: torch.Tensor, params: ClassifyPar
 
 
 def classify_shard(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.Tensor,
-                   params: ClassifyParams) -> ShardHit:
-    """Best hit of every read against one shard."""
+                   params: ClassifyParams, sketch=None) -> ShardHit:
+    """Best hit of every read against one shard; ``sketch`` is an
+    optional hoisted sketch_batch result."""
     B, L = codes.shape
-    qh, qp, qs, qv = sketch_batch(codes, lengths, params)
+    qh, qp, qs, qv = sketch if sketch is not None else sketch_batch(codes, lengths, params)
     key, diag, rpos, fpos = lk.lookup_anchors(
         index.mz_rows, qh, qp, qs, qv, tag_bits=params.tag_bits, bucket_len=L,
         anchors_per_seed=params.anchors_per_seed,
@@ -162,7 +229,7 @@ def classify_shard(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.
         # vote gate, compacted into B/8, B/2 or B slots by the candidate
         # count.  The reference picks the tier with nested lax.conds on
         # the device; here int(n_cand) decides on the host, which costs
-        # one device->host sync per batch.
+        # one device->host sync per batch and shard.
         cand = ~passed & (res.f1 >= params.rescue_min_votes) & (res.f2 * 2 <= res.f1) & (lengths > 0)
         n_cand = int(cand.sum())
         if n_cand > 0:
@@ -227,6 +294,60 @@ def finalize_single(hit: ShardHit) -> ReadResult:
     )
 
 
+def merge_hits(hits: ShardHit, tie_rel_tol: float = ClassifyParams().tie_rel_tol,
+               vote_tie_sd: float = ClassifyParams().vote_tie_sd) -> ReadResult:
+    """Merge per-shard hits stacked on axis 0 (S, B): the best passing
+    shard by merge_cost (the first one on an exact tie, as jnp.argmin
+    picks it), AMBIGUOUS when another passing shard with a different
+    accession lies within the cost band ``best * (1 + tie_rel_tol) +
+    1e-6`` or within ``vote_tie_sd * sqrt(best_votes)`` votes of the
+    best; with nothing passing, AMBIGUOUS when a shard reports an
+    internal tie.  Both tolerances 0 give exact-tie semantics.
+
+    The cost band is rounded once, as the JAX package computes it: XLA
+    on the CPU contracts its multiply-add into an FMA.  The product
+    of two float32 values is exact in float64, so the float64 sum
+    rounded to float32 is that FMA (a double rounding can differ only
+    in about one case in 2^28)."""
+    S, B = hits.passed.shape
+    dev = hits.passed.device
+
+    def f32(v):  # a float32 constant made on the hits' device: no host copy
+        return torch.full((), v, dtype=torch.float32, device=dev)
+
+    cost = torch.where(hits.passed, hits.merge_cost, f32(1e9))
+    best_s = mz.first_argmin(cost.T)  # (B,)
+
+    def take(x):
+        return torch.gather(x, 0, best_s[None, :])[0]
+
+    best_cost = take(cost)
+    any_pass = hits.passed.any(dim=0)
+    is_best = torch.arange(S, device=dev)[:, None] == best_s[None, :]
+    band = (best_cost.double() * float(np.float32(1.0 + tie_rel_tol))
+            + float(np.float32(1e-6))).to(torch.float32)
+    best_acc = take(hits.acc_id)
+    near = cost <= band[None, :]
+    if vote_tie_sd > 0.0:
+        best_votes = take(hits.votes).to(torch.float32)
+        vband = f32(vote_tie_sd) * torch.sqrt(torch.clamp(best_votes, min=1.0))
+        dv = torch.abs(hits.votes.to(torch.float32) - best_votes[None, :])
+        near = near | (dv <= vband[None, :])
+    tie = (near & ~is_best & hits.passed & (hits.acc_id != best_acc[None, :])).any(dim=0)
+    tied_inside = hits.tied.any(dim=0)
+    status = torch.where(any_pass, torch.where(tie, AMBIGUOUS, MAPPED),
+                         torch.where(tied_inside, AMBIGUOUS, UNMAPPED))
+    mapped = status == MAPPED
+    return ReadResult(
+        status=status.to(torch.int32),
+        acc_id=torch.where(mapped, take(hits.acc_id), -1),
+        inv_identity=take(hits.inv_identity),
+        mlen=torch.where(mapped, take(hits.mlen), 0),
+        mapq=take(hits.mapq),
+        rc=take(hits.rc),
+    )
+
+
 def count_reads(result: ReadResult, lengths: torch.Tensor, n_accessions: int,
                 count_mode: int) -> torch.Tensor:
     """Per-accession int32 counts of this batch: basic = 1,
@@ -253,6 +374,25 @@ def classify_batch(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.
     return result, count_reads(result, lengths, n_accessions, count_mode)
 
 
+def classify_batch_grouped(groups: tuple[DeviceIndexShard, ...], codes: torch.Tensor,
+                           lengths: torch.Tensor, params: ClassifyParams, n_accessions: int,
+                           count_mode: int = MODE_QUERY_LENGTH):
+    """Multi-shard step over size-class groups (stack_device_shard_groups):
+    the sketch once, every shard of every group in turn on a slice of
+    its group's stacked tensors, hits stacked in group-then-shard order,
+    then merge_hits and the counts.  A single-shard index goes through
+    classify_batch instead."""
+    sk = sketch_batch(codes, lengths, params)
+    hits = [
+        classify_shard(DeviceIndexShard(g.mz_rows[s], g.pos_acc[s], g.ref_codes[s]),
+                       codes, lengths, params, sketch=sk)
+        for g in groups for s in range(g.mz_rows.shape[0])
+    ]
+    merged = ShardHit(*(torch.stack(f) for f in zip(*hits)))
+    result = merge_hits(merged, params.tie_rel_tol, params.vote_tie_sd)
+    return result, count_reads(result, lengths, n_accessions, count_mode)
+
+
 def unpack_codes(packed: torch.Tensor, read_len: int) -> torch.Tensor:
     """Inverse of ``io.encode.pack_codes_2bit``: (B, ceil(L/4)) uint8
     wire bytes -> (B, L) uint8 base codes."""
@@ -267,6 +407,19 @@ def classify_batch_packed(index, packed, lengths, read_len, params, n_accessions
     """classify_batch on 2-bit packed wire input."""
     return classify_batch(index, unpack_codes(packed, read_len), lengths, params,
                           n_accessions, count_mode)
+
+
+def classify_batch_grouped_packed(groups, packed, lengths, read_len, params, n_accessions,
+                                  count_mode=MODE_QUERY_LENGTH):
+    """classify_batch_grouped on 2-bit packed wire input."""
+    return classify_batch_grouped(groups, unpack_codes(packed, read_len), lengths, params,
+                                  n_accessions, count_mode)
+
+
+def concat_packed(arrs) -> torch.Tensor:
+    """A whole sample's pack_results tensors as ONE flat int32 tensor on
+    the device, so the sample costs a single device->host transfer."""
+    return torch.cat([a.reshape(-1) for a in arrs])
 
 
 def pack_results(result: ReadResult, counts: torch.Tensor) -> torch.Tensor:

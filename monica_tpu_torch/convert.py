@@ -9,9 +9,11 @@ classify with both packages against the very same index.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from monica_tpu_torch.align import pipeline as pl
 from monica_tpu_torch.index.build import BuiltIndex, IndexMeta, IndexShard
+from monica_tpu_torch.stats.abundance import AbundanceState
 
 _SHARD_FIELDS = (
     "ref_codes", "seq_starts", "seq_lengths", "seq_accession_id",
@@ -41,6 +43,26 @@ def device_shard_from_reference(mz_rows, pos_acc, ref_codes, device) -> pl.Devic
     table, uint16 pos_acc, uint8 codes) -> the port's on ``device``."""
     return pl.index_tensors(np.asarray(mz_rows), np.asarray(pos_acc),
                             np.asarray(ref_codes), device)
+
+
+def groups_from_reference(ref_groups, device) -> tuple[pl.DeviceIndexShard, ...]:
+    """The reference's stacked size-class groups (``stack_device_shard_groups``:
+    uint32 tables, uint16 pos_acc, uint8 codes, each with a leading shard
+    axis) -> the port's stacked groups on ``device``."""
+    return tuple(
+        pl.DeviceIndexShard(
+            mz_rows=torch.from_numpy(np.array(g.mz_rows, dtype=np.uint32).view(np.int32)).to(device),
+            pos_acc=torch.from_numpy(np.array(g.pos_acc, dtype=np.int32)).to(device),
+            ref_codes=torch.from_numpy(np.array(g.ref_codes, dtype=np.uint8)).to(device),
+        )
+        for g in ref_groups
+    )
+
+
+def state_from_reference(ref_state) -> AbundanceState:
+    """A reference ``AbundanceState`` -> the port's (copies)."""
+    return AbundanceState(ref_state.n_accessions,
+                          {k: np.array(v, dtype=np.int64) for k, v in ref_state.samples.items()})
 
 
 def params_from_reference(ref_params) -> pl.ClassifyParams:

@@ -1,7 +1,10 @@
 """Synthetic reference and read generators (host side, numpy) —
 counterparts of ``zymo_community`` and ``simulate_read_codes`` in
-``monica_tpu/evaluation.py``, drawing the same values from the same
-generator, plus the two batch draws ``chip_smoke.py`` classifies."""
+``monica_tpu/evaluation.py`` and of the gut community ``bench.py --gut``
+draws, drawing the same values from the same generator, plus the batch
+draws and the FASTQ samples ``chip_smoke.py`` classifies, and the random
+ShardHit stacks on which the merge is held to the JAX package (tests)
+and the card to the CPU (``chip_smoke.py``)."""
 
 from __future__ import annotations
 
@@ -13,6 +16,13 @@ def zymo_community(rng: np.random.Generator, scale: float = 1.0) -> list[np.ndar
     modelled as 8 × 5 Mb + 2 × 12 Mb ≈ 64 Mbase of random reference."""
     sizes = [int(5e6 * scale)] * 8 + [int(12e6 * scale)] * 2
     return [rng.integers(0, 4, size=n).astype(np.uint8) for n in sizes]
+
+
+def gut_community(rng: np.random.Generator) -> list[np.ndarray]:
+    """The gut-microbiome analog of BASELINE config 3 (a 200-genome
+    RefSeq subset): 200 × 1.5 Mb = 300 Mbase of random reference, more
+    than one 2^26-base shard holds."""
+    return [rng.integers(0, 4, 1_500_000).astype(np.uint8) for _ in range(200)]
 
 
 def _homopolymer_mask(frag: np.ndarray, min_run: int = 3) -> np.ndarray:
@@ -55,18 +65,11 @@ def simulate_read_codes(
     p_ins = np.where(hp, np.minimum(ins * hp_bias, 0.5), ins)
     n_ins = rng.random(len(frag)) < p_ins
     if n_ins.any():
-        out = np.empty(len(frag) + int(n_ins.sum()), dtype=np.uint8)
-        j = 0
-        ins_vals = rng.integers(0, 4, int(n_ins.sum())).astype(np.uint8)
-        vi = 0
-        for i, c in enumerate(frag):
-            out[j] = c
-            j += 1
-            if n_ins[i]:
-                out[j] = c if hp[i] else ins_vals[vi]
-                j += 1
-                vi += 1
-        frag = out
+        # after each base drawn for an insertion: a copy of it inside a
+        # homopolymer run, else the next random base
+        at = np.flatnonzero(n_ins)
+        ins_vals = rng.integers(0, 4, len(at)).astype(np.uint8)
+        frag = np.insert(frag, at + 1, np.where(hp[at], frag[at], ins_vals))
     return frag[:read_len]
 
 
@@ -99,3 +102,80 @@ def sim_batch(seqs, rng: np.random.Generator, n: int, lo: int, hi: int, error, b
         codes[i, : len(r)] = r
         lengths[i] = len(r)
     return codes, lengths, labels
+
+
+def nanopore_lengths(rng: np.random.Generator, n: int, lo: int = 300,
+                     hi: int = 40_000) -> np.ndarray:
+    """n read lengths drawn log-uniform over [lo, hi] bp (int64)."""
+    return np.exp(rng.uniform(np.log(lo), np.log(hi), n)).astype(np.int64)
+
+
+def nanopore_sample(seqs, rng: np.random.Generator, lengths, error):
+    """One simulated read per length (random genome, random strand,
+    ``error`` = (sub, ins, del)).  Returns (reads as uint8 code arrays,
+    source genome per read)."""
+    labels = rng.integers(0, len(seqs), len(lengths))
+    reads = [simulate_read_codes(rng, seqs[g], int(n), *error, bool(rng.random() < 0.5))
+             for g, n in zip(labels, lengths)]
+    return reads, labels
+
+
+SHARD_HIT_DTYPES = dict(acc_id=np.int32, inv_identity=np.float32, merge_cost=np.float32,
+                        mlen=np.int32, mapq=np.float32, votes=np.int32, passed=bool, rc=bool,
+                        ref_pos=np.int32, tied=bool)
+
+
+def fma_cost_band(best: np.ndarray, tie_rel_tol: float) -> np.ndarray:
+    """float32 ``best * (1 + tie_rel_tol) + 1e-6`` rounded once, as a
+    fused multiply-add rounds it."""
+    return (best.astype(np.float64) * np.float64(np.float32(1.0 + tie_rel_tol))
+            + np.float64(np.float32(1e-6))).astype(np.float32)
+
+
+def random_shard_hits(rng: np.random.Generator, S: int, B: int, tie_rel_tol: float,
+                      vote_tie_sd: float) -> dict:
+    """The fields of an (S, B) ShardHit stack as numpy arrays (dtypes of
+    :data:`SHARD_HIT_DTYPES`), full of what the cross-shard merge must
+    decide exactly: exact ties, same-accession ties, near-ties inside and
+    outside both bands, reads on the exact cost-band edge (rounded once
+    and rounded twice) and one ulp outside it."""
+    passed = rng.random((S, B)) < 0.7
+    acc = rng.integers(0, 4, (S, B))
+    cost = (rng.random((S, B)) * 0.3).astype(np.float32)
+    votes = rng.integers(1, 80, (S, B))
+    best = cost[0]
+    kind = rng.integers(0, 8, B)
+    for j in range(1, S):
+        r = rng.random(B)
+        u = np.where(r < 0.5, rng.uniform(0.2, 0.95, B), rng.uniform(1.05, 1.8, B))
+        cost[j] = np.select(
+            [kind == 0, kind == 1, kind == 2, kind == 3, kind == 4],
+            [best,  # exact tie
+             best * (1 + np.float32(tie_rel_tol) * u.astype(np.float32)),  # near the band
+             fma_cost_band(best, tie_rel_tol),  # on the single-rounded edge
+             best * np.float32(1.0 + tie_rel_tol) + np.float32(1e-6),  # the two-step edge
+             np.nextafter(fma_cost_band(best, tie_rel_tol), np.float32(2))],  # one ulp out
+            cost[j]).astype(np.float32)
+        vu = np.round(np.sqrt(votes[0]) * vote_tie_sd * u * np.sign(r - 0.5)).astype(np.int64)
+        votes[j] = np.where(kind == 5, np.maximum(votes[0] + vu, 1), votes[j])
+        acc[j] = np.where(kind == 6, acc[0], acc[j])  # same-accession tie
+    fields = dict(
+        acc_id=acc, inv_identity=rng.random((S, B)), merge_cost=cost,
+        mlen=rng.integers(1, 5000, (S, B)), mapq=rng.random((S, B)) * 60,
+        votes=votes, passed=passed, rc=rng.random((S, B)) < 0.5,
+        ref_pos=rng.integers(0, 1 << 20, (S, B)), tied=rng.random((S, B)) < 0.15,
+    )
+    return {f: np.asarray(v, SHARD_HIT_DTYPES[f]) for f, v in fields.items()}
+
+
+_BASES = np.frombuffer(b"ACGTN", dtype=np.uint8)
+
+
+def write_fastq_sample(path, reads, prefix: str = "read") -> None:
+    """Write code arrays as a 4-line FASTQ sample, ids ``<prefix><i>``
+    and constant quality."""
+    with open(path, "wb") as fh:
+        for i, r in enumerate(reads):
+            fh.write(b"@%s%d\n%s\n+\n%s\n" % (prefix.encode(), i,
+                                               _BASES[np.minimum(r, 4)].tobytes(),
+                                               b"I" * len(r)))

@@ -5,12 +5,14 @@ Genomes are packed into one flat uint8 code array per shard (records
 separated by N guards), sketched on the CPU with the port's own sketch
 (:mod:`monica_tpu_torch.index.minimizer`), hash-sorted, filtered by the
 occurrence cap and attributed per position to an accession id.  The
-arrays are bit-identical to the reference's host build.  The
+arrays are bit-identical to the reference's host build.  A multi-shard
+build runs one thread per shard (:func:`_build_shards_threaded`).  The
 device-side build is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -225,13 +227,25 @@ def _build_shard(
     )
 
 
+def _build_shards_threaded(assignment, units, k, w, guard, frac, occ_cap) -> list[IndexShard]:
+    """Build the shards concurrently, one thread per shard (at most 8):
+    _build_shard is pure, and the torch sketch and numpy's large array
+    ops release the GIL, so the shards' sketch chains overlap.  Each
+    shard is the same as from a serial build."""
+    if len(assignment) <= 1:
+        return [_build_shard(m, units, k, w, guard, frac, occ_cap) for m in assignment]
+    with ThreadPoolExecutor(max_workers=min(len(assignment), 8)) as pool:
+        return list(pool.map(
+            lambda m: _build_shard(m, units, k, w, guard, frac, occ_cap), assignment))
+
+
 def _build(units, n_shards, max_shard_bytes, k, w, guard, frac, occ_cap):
     assignment = _assign_units(
         [len(u[1]) for u in units],
         n_shards if max_shard_bytes is None else None,
         max_shard_bytes,
     )
-    return [_build_shard(m, units, k, w, guard, frac, occ_cap) for m in assignment]
+    return _build_shards_threaded(assignment, units, k, w, guard, frac, occ_cap)
 
 
 def build_index(

@@ -101,3 +101,18 @@ def test_params_from_reference():
     ref_defaults = ref_pl.ClassifyParams()._asdict()
     for k, v in ref_defaults.items():
         assert defaults[k] == v, k
+
+
+def test_threaded_shard_build_equals_serial():
+    """A multi-shard build runs a thread per shard; every shard equals
+    the one a serial _build_shard call makes, in assignment order."""
+    seqs = _genomes(seed=4, n=6, length=20_000)
+    got = build.build_index_from_arrays(seqs, n_shards=4)
+    units = build._segment_records([[s] for s in seqs])
+    assignment = build._assign_units([len(u[1]) for u in units], 4, None)
+    assert len(assignment) == len(got.shards) == 4
+    for members, shard in zip(assignment, got.shards):
+        want = build._build_shard(members, units, 15, 10, 32, 1.0)
+        for f in SHARD_ARRAYS:
+            np.testing.assert_array_equal(getattr(shard, f), getattr(want, f), err_msg=f)
+    _assert_same_index(ref_build.build_index_from_arrays(seqs, n_shards=4), got)

@@ -1,5 +1,6 @@
-"""The PyTorch port imports without jax, and its kernel dispatch never
-falls back: a CUDA route asked for on a CPU tensor raises."""
+"""The PyTorch port imports without jax, the JAX package and pandas,
+and its kernel dispatch never falls back: a CUDA route asked for on a
+CPU tensor raises."""
 
 import pkgutil
 import subprocess
@@ -23,8 +24,9 @@ MODULES = sorted(
 )
 
 
-# jax and the JAX package are made unimportable in the child process
-BLOCK = "import sys\nsys.modules['jax'] = None\nsys.modules['monica_tpu'] = None\n"
+# jax, the JAX package and pandas are made unimportable in the child process
+BLOCK = ("import sys\nsys.modules['jax'] = None\nsys.modules['monica_tpu'] = None\n"
+         "sys.modules['pandas'] = None\n")
 
 
 def _run_blocked(code: str) -> subprocess.CompletedProcess:
@@ -38,7 +40,8 @@ def test_every_module_imports_with_jax_blocked():
         f"for name in {MODULES!r}:\n"
         "    importlib.import_module(name)\n"
         "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
-        "assert not [m for m in loaded if m == 'jax' or m.startswith(('jax.', 'monica_tpu.'))]\n"
+        "assert not [m for m in loaded if m in ('jax', 'pandas')\n"
+        "            or m.startswith(('jax.', 'monica_tpu.', 'pandas.'))]\n"
         "print('ok')\n"
     )
     assert proc.returncode == 0, proc.stderr
@@ -46,8 +49,9 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_chip_smoke_imports_nothing_of_jax_and_fails_without_a_card():
-    """chip_smoke.py runs with jax and the JAX package unimportable, and
-    with no CUDA card it exits nonzero before printing any result."""
+    """chip_smoke.py runs with jax, the JAX package and pandas
+    unimportable, and with no CUDA card it exits nonzero before printing
+    any result."""
     proc = _run_blocked("import runpy\nrunpy.run_path('chip_smoke.py', run_name='__main__')\n")
     assert proc.returncode != 0
     assert "torch.cuda.is_available() is false" in proc.stderr
@@ -57,7 +61,8 @@ def test_chip_smoke_imports_nothing_of_jax_and_fails_without_a_card():
 def test_module_list_covers_the_slice():
     for name in ("index.minimizer", "index.build", "ops.lookup", "ops.chain",
                  "ops.extend", "ops._native", "align.pipeline", "align.runtime",
-                 "convert", "io.encode", "io.seq", "evaluation"):
+                 "convert", "io.encode", "io.seq", "io.native", "evaluation",
+                 "stats.abundance", "utils.metrics"):
         assert f"monica_tpu_torch.{name}" in MODULES
 
 
@@ -67,7 +72,8 @@ def test_no_jax_import_in_source():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax", "import monica_tpu.",
                                      "from monica_tpu.", "from monica_tpu ",
-                                     "import monica_tpu ")), f"{path}: {s}"
+                                     "import monica_tpu ", "import pandas",
+                                     "from pandas")), f"{path}: {s}"
 
 
 def _sw_inputs(B=2, L=64, W=64):
@@ -131,6 +137,6 @@ def test_classifier_requires_device_and_refuses_mesh():
     two = build_index_from_arrays(
         [rng.integers(0, 4, 5000).astype(np.uint8) for _ in range(2)], n_shards=2
     )
-    with pytest.raises(NotImplementedError, match="multi-shard"):
-        rt.Classifier(two, device="cpu")
+    clf = rt.Classifier(two, device="cpu")  # a multi-shard index: stacked groups
+    assert isinstance(clf.index, tuple) and clf.index[0].mz_rows.shape[0] == 2
     assert monica_tpu_torch.__doc__
