@@ -18,11 +18,22 @@ drives the port's two paths:
   rates;
 * the cross-shard merge on random tie-rich hit stacks, the card held
   equal to the CPU (``[merge_agree]``);
+* the index build on the card (``[index]``: the 64 Mbase index built
+  wholly on the card, its table taken by the ``Classifier`` as it is),
+  held bit-equal to the host build, with no overflow route, and a
+  homopolymer reference that takes the counted overflow route
+  (``[build_agree]``);
 * the multi-shard streaming runtime — a 300 Mbase, 5-shard gut index
-  (``[gut_index]``) and ``run_once`` over a folder of 8 nanopore FASTQ
-  samples of 1,500 reads of 300-40,000 bp, then the abundance tables
-  (``[stream]``), and the chunked, CPU and serial runs held equal to it
-  (``[stream_agree]``).
+  sketched and sorted on the card (``[gut_index]``) and ``run_once`` over
+  a folder of 8 nanopore FASTQ samples of 1,500 reads of 300-40,000 bp,
+  then the abundance tables (``[stream]``), and the chunked, CPU and
+  serial runs held equal to it (``[stream_agree]``);
+* the product path — the CLI (``python -m monica_tpu_torch.cli``) on an
+  offline world of the 10 Zymo genomes (taxdump, assembly summary,
+  ``.fna.gz`` files) and 4 FASTQ samples of 4,000 reads: ``build_index``,
+  then the analysis run on the cached index with its focus second pass
+  (``[cli]``); the library run on the saved artifact and ``plot_only``
+  held byte-equal to the CLI's tables and HTML (``[cli_agree]``).
 
 Every phase prints one line; any failure raises, so the exit code is
 nonzero and the final line is missing.  The last two lines are the
@@ -33,10 +44,14 @@ It needs CUDA: without a card it exits nonzero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
+import gzip
 import json
 import os
 import platform
+import runpy
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -45,11 +60,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from monica_tpu_torch._u32 import u32
 from monica_tpu_torch.align import pipeline as pl
 from monica_tpu_torch.align import runtime as rt
 from monica_tpu_torch.evaluation import (bench_reads, gut_community, nanopore_lengths,
                                          nanopore_sample, random_shard_hits, sim_batch,
                                          write_fastq_sample, zymo_community)
+from monica_tpu_torch.data import tables as tb
+from monica_tpu_torch.index import artifact
+from monica_tpu_torch.index import build as ib
 from monica_tpu_torch.index.build import build_index_from_arrays
 from monica_tpu_torch.io import encode as enc
 from monica_tpu_torch.io import native
@@ -57,8 +76,10 @@ from monica_tpu_torch.io import seq as seqio
 from monica_tpu_torch.io.encode import pack_codes_2bit
 from monica_tpu_torch.ops import _native
 from monica_tpu_torch.ops import extend as ex
+from monica_tpu_torch.ops import lookup as lk
+from monica_tpu_torch.plots import barplot
 from monica_tpu_torch.stats.abundance import (DATAFRAME_FILENAME, RAW_DATAFRAME_FILENAME,
-                                              AbundanceState, export_tables)
+                                              AbundanceState, export_tables, read_dataframe)
 from monica_tpu_torch.utils.metrics import Metrics
 
 SEED = 3
@@ -75,6 +96,16 @@ STREAM_LEN = (300, 40_000)  # log-uniform read lengths, bp
 STREAM_ERROR = (0.05, 0.03, 0.03)  # substitution, insertion, deletion
 STREAM_BATCH = 4096
 STAGE_REPS = 16  # synced reps of the one-batch timings
+# the product path: the Zymo community's species (8 bacteria of 5 Mb, 2
+# yeasts of 12 Mb, in zymo_community's order) and MinKNOW's default of
+# 4,000 reads per FASTQ file
+ZYMO_SPECIES = ["Pseudomonas aeruginosa", "Escherichia coli", "Salmonella enterica",
+                "Lactobacillus fermentum", "Enterococcus faecalis", "Staphylococcus aureus",
+                "Listeria monocytogenes", "Bacillus subtilis", "Saccharomyces cerevisiae",
+                "Cryptococcus neoformans"]
+FOCUS_SPECIES = "Escherichia coli"
+CLI_SAMPLES = 4
+CLI_READS = 4000
 SOURCE = "monica_tpu_torch/ops/csrc/banded_sw.cu"
 # (kernel instance, TPU kernel it replaces)
 KERNELS = {
@@ -268,20 +299,38 @@ def same(a, b, what: str) -> None:
         check(np.array_equal(x, y), f"{what}: {name} differs")
 
 
-def single_shard(dev) -> dict:
-    """The single-shard paths: bench workload, coverage batches,
-    agreement, stage times, busy share, rates.  Returns the kernel
-    launches counted over the bench and coverage runs."""
-    rng = np.random.default_rng(SEED)
+def device_build(dev, build):
+    """(build(), seconds) with the build-route counters reset first, the
+    card synced on both sides and its peak memory over the build (MiB)."""
+    ib.reset_build_routes()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
+    built = build()
+    torch.cuda.synchronize()
+    return built, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def single_shard(dev):
+    """The single-shard paths: the index built on the card, bench
+    workload, coverage batches, agreement, stage times, busy share,
+    rates.  Returns the kernel launches counted over the bench and
+    coverage runs, and the Zymo sequences, index and build seconds."""
+    rng = np.random.default_rng(SEED)
     seqs = zymo_community(rng)
-    built = build_index_from_arrays(seqs, n_shards=1)
-    build_s = time.perf_counter() - t0
+    built, build_s, build_mb = device_build(
+        dev, lambda: build_index_from_arrays(seqs, n_shards=1, device=dev))
+    check(built.device is not None and ib.BUILD_ROUTES == {
+        "device_table": 1, "device_sketch_sort": 1, "overflow": 0},
+        f"the Zymo index did not build wholly on the card: {ib.BUILD_ROUTES}")
     t0 = time.perf_counter()
     clf = rt.Classifier(built, device=dev)
+    check(clf.index.mz_rows.data_ptr() == built.device[0][0].data_ptr(),
+          "the Classifier did not take the card's table")
     say("index", mbase=f"{sum(map(len, seqs)) / 1e6:.1f}", shards=len(built.shards),
-        minimizers=built.shards[0].n_minimizers, build_s=f"{build_s:.1f}",
-        upload_s=f"{time.perf_counter() - t0:.1f}", table_rows=clf.index.mz_rows.shape[0],
+        route="device_table", build_s=f"{build_s:.2f}", build_peak_mb=f"{build_mb:.0f}",
+        upload_s=f"{time.perf_counter() - t0:.2f}", table_rows=clf.index.mz_rows.shape[0],
         device_mb=f"{torch.cuda.memory_allocated() / 2**20:.0f}")
 
     codes, labels = bench_reads(seqs, rng, BATCH * N_BATCHES, READ_LEN, SUB_RATE)
@@ -356,7 +405,48 @@ def single_shard(dev) -> dict:
         matching_reps_s=[f"{d:.4f}" for d in m_dts],
         long32k_reads_per_s=f"{l_rate:.1f}", long32k_reps_s=[f"{d:.4f}" for d in l_dts])
 
-    return launches
+    return launches, seqs, built, build_s
+
+
+def build_agree(dev, seqs, built, card_s) -> None:
+    """[build_agree]: the Zymo index built on the host (device cpu) against
+    the card's build of [index]: the card's table bit-equal to
+    build_hash_rows over the host arrays with equal n_kept, and the
+    arrays LazyDeviceShard fetches equal to the host shard's.  Then a
+    homopolymer-rich reference overflows a segment's compaction capacity
+    on the card: the counted overflow route, and the host build's arrays."""
+    t0 = time.perf_counter()
+    host = build_index_from_arrays(seqs, n_shards=1, device="cpu")
+    host_s = time.perf_counter() - t0
+    hs, ds = host.shards[0], built.shards[0]
+    table, tag_bits = built.device[0]
+    check(tag_bits == lk.tag_bits_for(len(hs.ref_codes)), "tag bits differ")
+    want = lk.build_hash_rows(hs.mz_hash, hs.mz_pos, hs.mz_strand, tag_bits)
+    check(np.array_equal(table.cpu().numpy().view(np.uint32), want),
+          "the card's table differs from build_hash_rows over the host arrays")
+    again, n_kept = ib._device_hash_table(u32(ds._h_dev), ds._ps_dev.long(), ds._total,
+                                          tag_bits, built.meta.occ_cap)
+    check(n_kept == hs.n_minimizers and torch.equal(again, table),
+          f"n_kept {n_kept} vs {hs.n_minimizers} host minimizers, or a second fill differs")
+    for f in ("ref_codes", "seq_starts", "seq_lengths", "seq_accession_id", "mz_hash",
+              "mz_pos", "mz_strand", "pos_accession_id"):
+        a, b = getattr(ds, f), getattr(hs, f)
+        check(a.dtype == b.dtype and np.array_equal(a, b), f"LazyDeviceShard.{f} differs")
+
+    rng = np.random.default_rng(SEED + 5)
+    homo = [np.concatenate([np.zeros(1 << 22, np.uint8),
+                            rng.integers(0, 4, 200_000).astype(np.uint8)])]
+    routed, _, _ = device_build(dev, lambda: build_index_from_arrays(homo, device=dev))
+    check(ib.BUILD_ROUTES == {"device_table": 0, "device_sketch_sort": 0, "overflow": 1}
+          and routed.device is None, f"homopolymer: routes {ib.BUILD_ROUTES}")
+    ref = build_index_from_arrays(homo, device="cpu")
+    for f in ("mz_hash", "mz_pos", "mz_strand", "pos_accession_id"):
+        check(np.array_equal(getattr(routed.shards[0], f), getattr(ref.shards[0], f)),
+              f"homopolymer: {f} differs from the host build")
+    say("build_agree", mbase=f"{len(hs.ref_codes) / 1e6:.1f}", n_kept=n_kept,
+        table_bit_equal=True, lazy_arrays_equal=True, overflow_routes=0,
+        host_build_s=f"{host_s:.2f}", card_build_s=f"{card_s:.2f}",
+        homopolymer_route="overflow", homopolymer_equals_host=True)
 
 
 def merge_agree(dev) -> None:
@@ -388,14 +478,16 @@ def merge_agree(dev) -> None:
 
 def gut_index(dev):
     """[gut_index]: BASELINE config 3, 200 x 1.5 Mb = 300 Mbase in 5
-    shards, built on the host with a thread per shard, then stacked by
-    size class on the card."""
+    shards, each sketched and sorted on the card, the rest of the build
+    on the host with a thread per shard, then stacked by size class on
+    the card."""
     rng = np.random.default_rng(SEED)
-    t0 = time.perf_counter()
     seqs = gut_community(rng)
-    built = build_index_from_arrays(seqs, n_shards=GUT_SHARDS)
-    build_s = time.perf_counter() - t0
+    built, build_s, build_mb = device_build(
+        dev, lambda: build_index_from_arrays(seqs, n_shards=GUT_SHARDS, device=dev))
     check(len(built.shards) == GUT_SHARDS, f"{len(built.shards)} shards, not {GUT_SHARDS}")
+    check(ib.BUILD_ROUTES == {"device_table": 0, "device_sketch_sort": GUT_SHARDS, "overflow": 0},
+          f"gut: not every shard was sketched and sorted on the card: {ib.BUILD_ROUTES}")
     before = torch.cuda.memory_allocated()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -407,8 +499,9 @@ def gut_index(dev):
         size_classes=[pl._size_class(len(sh.ref_codes)) for sh in built.shards],
         groups=[g.mz_rows.shape[0] for g in clf.index],
         table_rows=[g.mz_rows.shape[1] for g in clf.index],
-        minimizers=[sh.n_minimizers for sh in built.shards],
-        build_s=f"{build_s:.1f}", upload_s=f"{upload_s:.1f}",
+        minimizers=[sh.n_minimizers for sh in built.shards], route="device_sketch_sort",
+        build_s=f"{build_s:.2f}", build_peak_mb=f"{build_mb:.0f}",
+        upload_s=f"{upload_s:.1f}",
         stacked_mb=f"{pl.stacked_nbytes(clf.index) / 2**20:.0f}",
         device_mb=f"{(torch.cuda.memory_allocated() - before) / 2**20:.0f}",
         device_mb_total=f"{torch.cuda.memory_allocated() / 2**20:.0f}")
@@ -423,9 +516,9 @@ def counted_length(n: int) -> int:
 
 
 def draw_samples(seqs, rng, folder: Path, n_samples: int, n_reads: int, prefix: str,
-                 max_len: int | None = None) -> dict:
+                 max_len: int | None = None, names: list[str] | None = None) -> dict:
     """Write simulated nanopore FASTQ samples; returns the true tax unit
-    of each read sequence."""
+    of each read sequence (``names[g]``, else ``Species_<g>``)."""
     folder.mkdir(parents=True, exist_ok=True)
     truth = {}
     for k in range(n_samples):
@@ -435,7 +528,7 @@ def draw_samples(seqs, rng, folder: Path, n_samples: int, n_reads: int, prefix: 
         reads, labels = nanopore_sample(seqs, rng, lengths, STREAM_ERROR)
         write_fastq_sample(folder / f"{prefix}{k}.fastq", reads, prefix=f"{prefix}{k}_r")
         for r, g in zip(reads, labels):
-            truth[enc.decode_seq(r)] = f"Species_{g}"
+            truth[enc.decode_seq(r)] = names[g] if names else f"Species_{g}"
     return truth
 
 
@@ -609,6 +702,167 @@ def stream_agree(dev, seqs, built, clf, tmp: Path, first: dict) -> None:
         card_run_s=f"{secs['card']:.2f}")
 
 
+def write_world(seqs, tmp: Path) -> list[str]:
+    """An offline NCBI for the 10 Zymo genomes: a taxdump (Bacteria and
+    Eukaryota, a genus and a species node per genome), one assembly
+    summary naming them, and the genomes as ``.fna.gz`` files under the
+    summary's ftp basenames.  Returns the CLI's transport flags."""
+    taxdump, gdir = tmp / "taxdump", tmp / "genome_files"
+    taxdump.mkdir()
+    gdir.mkdir()
+    nodes, names, rows = [(1, 1), (2, 1), (2759, 1)], {1: "root", 2: "Bacteria",
+                                                       2759: "Eukaryota"}, []
+    for i, (species, codes) in enumerate(zip(ZYMO_SPECIES, seqs)):
+        genus, taxid = 100 + i, 200 + i
+        nodes += [(genus, 2 if i < 8 else 2759), (taxid, genus)]
+        names[genus], names[taxid] = species.split()[0], species
+        acc = f"GCF_{taxid:09d}.1"
+        ftp = f"https://ftp.ncbi.nlm.nih.gov/genomes/all/GCF/{acc}_zymo"
+        rows.append({"# assembly_accession": acc, "taxid": str(taxid),
+                     "species_taxid": str(taxid), "organism_name": species,
+                     "infraspecific_name": "strain=ZYMO", "isolate": "na", "ftp_path": ftp})
+        text = enc.decode_seq(codes)
+        with gzip.open(gdir / f"{acc}_zymo_genomic.fna.gz", "wt", compresslevel=1) as fh:
+            fh.write(f">NZ_{acc}_chr {species} ZYMO\n")
+            fh.write("\n".join(text[j : j + 80] for j in range(0, len(text), 80)) + "\n")
+    (taxdump / "nodes.dmp").write_text("".join(f"{c}\t|\t{p}\t|\trank\t|\n" for c, p in nodes))
+    (taxdump / "names.dmp").write_text(
+        "".join(f"{t}\t|\t{n}\t|\t\t|\tscientific name\t|\n" for t, n in names.items()))
+    summary = tmp / "assembly_summary.txt"
+    tb.write_fixture_summary(summary, rows)
+    return ["--taxdump", str(taxdump), "--offline_tables", str(summary), str(summary),
+            "--offline_genomes", str(gdir)]
+
+
+def run_cli(argv: list[str], log: Path) -> tuple[int, float]:
+    """Run ``python -m monica_tpu_torch.cli <argv>`` in this process (the
+    module run as __main__, as the interpreter runs it, so the kernel
+    launch counters see its launches), its stdout appended to ``log``.
+    Returns (exit code, wall seconds)."""
+    argv0, sys.argv = sys.argv, ["monica_tpu_torch.cli", *argv]
+    t0 = time.perf_counter()
+    try:
+        with open(log, "a") as fh, contextlib.redirect_stdout(fh):
+            runpy.run_module("monica_tpu_torch.cli", run_name="__main__", alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else int(e.code is not None)
+    except BaseException:
+        print("".join(log.read_text().splitlines(True)[-40:]), file=sys.stderr)
+        raise
+    finally:
+        sys.argv = argv0
+    return rc, time.perf_counter() - t0
+
+
+def cli(dev, seqs, tmp: Path) -> dict:
+    """[cli]: the port's CLI on an offline world of the 10 Zymo genomes.
+    ``build_index`` builds the guests' group and the focus group on the
+    card; the analysis run (the default query_length mode) over 4 FASTQ
+    samples of 4,000 nanopore reads loads the cached indexes, routes and
+    counts the reads, writes the tables and the barplot, and runs the
+    focus second pass."""
+    rng = np.random.default_rng(SEED + 6)
+    transport = write_world(seqs, tmp)
+    root, q, out, log = tmp / "cli_root", tmp / "cli_query", tmp / "cli_out", tmp / "cli.log"
+    units = ["_".join(sp.split()) for sp in ZYMO_SPECIES]
+    truth = draw_samples(seqs, rng, q, CLI_SAMPLES, CLI_READS, "run", names=units)
+    inputs = {p.name: p.read_bytes() for p in sorted(q.glob("*.fastq"))}
+    n_reads, n_bases = CLI_SAMPLES * CLI_READS, sum(len(r) for r in truth)
+    common = ["--root", str(root), *transport, "--device", dev.type]
+    groups = ["-G", *ZYMO_SPECIES, "-F", FOCUS_SPECIES]
+
+    ib.reset_build_routes()
+    rc, build_wall = run_cli(["build_index", *common, *groups], log)
+    check(rc == 0, f"cli build_index exited {rc}")
+    check(ib.BUILD_ROUTES == {"device_table": 2, "device_sketch_sort": 2, "overflow": 0},
+          f"cli build_index: the G_ and F_ groups did not build on the card: {ib.BUILD_ROUTES}")
+    indexes = artifact.list_indexes(root / "indexes", root)
+    check(sorted(p.name[:2] for p in indexes) == ["F_", "G_"], f"cli indexes: {indexes}")
+
+    ib.reset_build_routes()
+    # ---- the CLI's analysis path: launch counts cover exactly this run ----
+    _native.reset_launch_counts()
+    rc, wall = run_cli([*common, "-q", str(q), "-o", str(out), *groups, "--not_auto_open_plot"],
+                       log)
+    launches = dict(_native.LAUNCHES)
+    # ---- end of the CLI's analysis path ----
+    check(rc == 0, f"cli analysis run exited {rc}")
+    for f in (DATAFRAME_FILENAME, RAW_DATAFRAME_FILENAME, barplot.BARPLOT_FILENAME,
+              "metrics.json", f"focus/{DATAFRAME_FILENAME}", f"focus/{barplot.BARPLOT_FILENAME}"):
+        check((out / f).exists(), f"cli: {f} not written")
+    failed = sorted(p.name for p in (q / rt.FAILED_DIR).glob("*"))
+    check(not failed and not list(q.glob("*.fastq")), f"cli: quarantined {failed}, or not consumed")
+    stages = json.loads((out / "metrics.json").read_text())
+    check(any(k.startswith("load_index:G_") for k in stages)
+          and any(k.startswith("load_index:F_") for k in stages)
+          and not any(k.startswith("build_index:") for k in stages)
+          and ib.BUILD_ROUTES == {"device_table": 0, "device_sketch_sort": 0, "overflow": 0},
+          f"cli: the analysis run did not load both cached indexes: {sorted(stages)}")
+    correct = sum(truth[rec.seq] == rec.id for name in inputs
+                  for rec in seqio.read_fastq(q / rt.MAPPED_DIR / name))
+    acc = correct / n_reads
+    focus_mapped = sum(1 for p in (q / rt.FOCUS_DIR / rt.MAPPED_DIR).glob("*.fastq")
+                       for _ in seqio.read_fastq(p))
+    check(focus_mapped > 0, "cli: the focus pass mapped nothing")
+    for name in ("banded_sw_packed_w64", "banded_sw_pairstate_w64"):
+        check(launches[name] > 0, f"cli: {name} never launched in the analysis run")
+    # the analysis run's stages (both passes); the rest of the wall time is
+    # the Classifiers' set-up, the tables, the barplots and the focus copy
+    split = {k: sum(v["seconds"] for name, v in stages.items() if name.startswith(k + ":"))
+             for k in ("fetch", "load_index", "parse", "dispatch", "classify", "route")}
+    say("cli", samples=CLI_SAMPLES, reads=n_reads, mbases=f"{n_bases / 1e6:.1f}",
+        build_index_wall_s=f"{build_wall:.2f}", analysis_wall_s=f"{wall:.2f}",
+        reads_per_s=f"{n_reads / wall:.1f}", mbases_per_s=f"{n_bases / 1e6 / wall:.2f}",
+        accuracy=f"{acc:.4f}", focus_mapped=focus_mapped, cached_index_loaded=True,
+        **{f"{k}_s": f"{v:.3f}" for k, v in split.items()},
+        other_s=f"{wall - sum(split.values()):.3f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    check(acc >= MIN_ACCURACY, f"cli accuracy {acc:.4f} < {MIN_ACCURACY}")
+    return dict(root=root, q=q, out=out, log=log, inputs=inputs)
+
+
+def cli_agree(dev, tmp: Path, run: dict) -> None:
+    """[cli_agree]: the same samples through the library on the G_
+    artifact (load_index -> Classifier -> run_once -> export_tables):
+    routed reads and both tables byte-equal to the CLI's.  Then
+    ``plot_only`` re-renders the CLI's HTML: byte-equal to the library's
+    barplot of its own tables, and to the CLI's run but for the title
+    (plot_only knows no species and no mode)."""
+    root, out = run["root"], run["out"]
+    q, lib_out = tmp / "lib_query", tmp / "lib_out"
+    q.mkdir()
+    for name, data in run["inputs"].items():
+        (q / name).write_bytes(data)
+    (g_dir,) = [p for p in artifact.list_indexes(root / "indexes", root) if p.name[:2] == "G_"]
+    built = artifact.load_index(g_dir)
+    clf = rt.Classifier(built, device=dev)
+    reports = rt.run_once(clf, q, lib_out)
+    check_consumed(q, reports, CLI_SAMPLES, "cli_agree")
+    norm, raw = export_tables(AbundanceState.load(lib_out, built.meta.n_accessions),
+                              built.meta, lib_out)
+    check(routed(q) == routed(run["q"]), "cli_agree: routed reads differ from the CLI's")
+    for f in (DATAFRAME_FILENAME, RAW_DATAFRAME_FILENAME):
+        check((lib_out / f).read_bytes() == (out / f).read_bytes(),
+              f"cli_agree: {f} differs from the CLI's")
+    html = out / barplot.BARPLOT_FILENAME
+    live = html.read_bytes()
+    rc, _ = run_cli(["--root", str(root), "plot_only", "-d", str(out / DATAFRAME_FILENAME),
+                     "--not_auto_open_plot"], run["log"])
+    check(rc == 0, f"plot_only exited {rc}")
+    replot = html.read_bytes()
+    lib_html = barplot.plotter(norm, raw, tmp / "lib_plot", auto_open=False).read_bytes()
+    check(replot == lib_html, "plot_only differs from the library's barplot of its tables")
+    title = f"Guests: {', '.join(ZYMO_SPECIES)}; analysis mode: single".encode()
+    check(live.count(title) == 2 and replot == live.replace(title, b"Analysis mode: None"),
+          "plot_only differs from the CLI run's barplot beyond the title")
+    back = read_dataframe(out / DATAFRAME_FILENAME)
+    check(back.index == norm.index and np.array_equal(back.values, norm.values, equal_nan=True),
+          "read_dataframe differs from the table written")
+    say("cli_agree", routed_equal=True, tables_byte_equal=True, plot_only_equals_library=True,
+        plot_only_equals_cli_but_title=True, html_bytes=len(replot))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
@@ -628,7 +882,9 @@ def main() -> None:
     check(native.available(), "the native FASTQ parser did not build")
 
     timings = compare_kernels(dev)
-    launches = single_shard(dev)
+    launches, zymo, zymo_built, zymo_build_s = single_shard(dev)
+    build_agree(dev, zymo, zymo_built, zymo_build_s)
+    del zymo_built
     torch.cuda.empty_cache()
     merge_agree(dev)
 
@@ -636,6 +892,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         first = stream(dev, seqs, built, clf, Path(tmp))
         stream_agree(dev, seqs, built, clf, Path(tmp), first)
+    del seqs, built, clf, first
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        run = cli(dev, zymo, Path(tmp))
+        cli_agree(dev, Path(tmp), run)
 
     table = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,

@@ -22,8 +22,13 @@ Conventions:
 
 Ported so far: the classify path (sketch -> lookup -> chain -> rescue
 extension -> finalize, or the cross-shard merge of a multi-shard index
--> count), the host index build, the ``Classifier`` and the
-single-process streaming runtime (``run_once`` / ``watch``: a folder of
-FASTQ samples to routed reads and abundance tables).  See ROADMAP.md
-for what comes next.
+-> count), the index build (on the host, or on the card for a CUDA
+device), the ``Classifier``, the single-process streaming runtime
+(``run_once`` / ``watch``: a folder of FASTQ samples to routed reads and
+abundance tables), and the product path around it: index artifacts,
+the offline data layer (``data/``), the barplot, ``orchestrate`` and the
+CLI (``python -m monica_tpu_torch.cli``).  See ROADMAP.md for what comes
+next.
 """
+
+__version__ = "0.1.0"

@@ -21,6 +21,13 @@ def u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & MASK32
 
 
+def i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64-held u32 values -> int32 tensor of the same bit pattern
+    (values >= 2^31 become negative), without relying on a narrowing
+    cast to wrap."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
 def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     """(a * c) mod 2^32 for a in [0, 2^32) and a 32-bit constant c.
 

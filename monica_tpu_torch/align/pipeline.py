@@ -47,13 +47,17 @@ class DeviceIndexShard(NamedTuple):
     ref_codes: torch.Tensor  # (T,) uint8 packed reference
 
 
-def index_tensors(mz_rows: np.ndarray, pos_acc: np.ndarray, ref_codes: np.ndarray,
-                  device) -> DeviceIndexShard:
+def index_tensors(mz_rows: np.ndarray | torch.Tensor, pos_acc: np.ndarray,
+                  ref_codes: np.ndarray, device) -> DeviceIndexShard:
     """numpy index arrays (uint32 table, uint16 pos_acc, uint8 codes)
     -> device tensors (copies, so read-only inputs are fine); pos_acc is
-    widened to int32 on load."""
+    widened to int32 on load.  A table already built as an int32 tensor
+    (the device build's) is used as it is, moved only if it lives on
+    another device."""
+    if not isinstance(mz_rows, torch.Tensor):
+        mz_rows = torch.from_numpy(np.array(mz_rows, dtype=np.uint32).view(np.int32))
     return DeviceIndexShard(
-        mz_rows=torch.from_numpy(np.array(mz_rows, dtype=np.uint32).view(np.int32)).to(device),
+        mz_rows=mz_rows.to(device),
         pos_acc=torch.from_numpy(np.array(pos_acc, dtype=np.int32)).to(device),
         ref_codes=torch.from_numpy(np.array(ref_codes, dtype=np.uint8)).to(device),
     )

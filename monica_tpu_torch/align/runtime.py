@@ -121,7 +121,14 @@ class Classifier:
             # 'matching' counts alignment mlen, so extension runs on
             # every read, not only on the rescue candidates
             params = params._replace(extend_mode="full")
-        if len(built.shards) == 1:
+        if len(built.shards) == 1 and built.device:
+            # a one-shard build on the card: its hash table is used as it
+            # is; only the per-position accession ids and the codes are
+            # uploaded
+            table, tag_bits = built.device[0]
+            sh = built.shards[0]
+            self.index = pl.index_tensors(table, sh.pos_accession_id, sh.ref_codes, self.device)
+        elif len(built.shards) == 1:
             self.index, tag_bits = pl.device_shard(built.shards[0], self.device)
         else:
             self.index, tag_bits = pl.stack_device_shard_groups(built.shards, self.device)

@@ -1,36 +1,76 @@
-"""Host index build — counterpart of the host path of
-``monica_tpu/index/build.py``.
+"""Index build — counterpart of ``monica_tpu/index/build.py``.
 
 Genomes are packed into one flat uint8 code array per shard (records
-separated by N guards), sketched on the CPU with the port's own sketch
+separated by N guards), sketched with the port's own sketch
 (:mod:`monica_tpu_torch.index.minimizer`), hash-sorted, filtered by the
-occurrence cap and attributed per position to an accession id.  The
-arrays are bit-identical to the reference's host build.  A multi-shard
-build runs one thread per shard (:func:`_build_shards_threaded`).  The
-device-side build is not ported yet (ROADMAP.md).
+occurrence cap and attributed per position to an accession id.
+
+Where the build runs follows its explicit ``device``:
+
+* on a CPU device, the host build: a chunked sketch and a stable
+  argsort, one thread per shard of a multi-shard build;
+* on a CUDA device, a one-shard build runs wholly on the card — sketch,
+  2-key sort, occurrence filter and hash-table fill
+  (:func:`_build_shard_device`) — and hands the table to the
+  ``Classifier`` as ``BuiltIndex.device``; in a multi-shard build each
+  shard of at least 2^21 bases is sketched and sorted on the card and
+  the rest of its build stays on the host.
+
+Both routes give bit-identical arrays.  As in the reference, a segment
+whose selected minimizers overflow the compaction capacity (a
+homopolymer-rich reference) sends its shard down the host route; that
+route is counted in :data:`BUILD_ROUTES`.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from monica_tpu_torch._u32 import MASK32, i32_bits
 from monica_tpu_torch.index import minimizer as mz
 from monica_tpu_torch.io import encode as enc
 from monica_tpu_torch.io import seq as seqio
-from monica_tpu_torch.ops.lookup import ROW_SLOTS
+from monica_tpu_torch.ops import lookup as lk
 
 # a minimizer occurring more than OCC_CAP times in a shard is dropped
 # wholesale (the minimap2 repetitive-seed cut); equal to the hash-row
 # capacity so every kept run fits its row
-OCC_CAP = ROW_SLOTS
+OCC_CAP = lk.ROW_SLOTS
 # packed lookup entries need pos<<1|strand plus >= MIN_TAG_BITS of tag
 SHARD_CAP = 1 << 26
 # records longer than this are segmented before packing
 SEG_LEN = 1 << 25
+
+# device sketch: segment length, per-segment entry capacity seg >> 2
+# (~1.4x the expected 2/(w+1) winnowing density), and the shard size from
+# which a multi-shard build sketches on the card
+_DEV_SEG = 1 << 22
+_DEV_CAP_SHIFT = 2
+_DEV_MIN_SHARD = 1 << 21
+_PAD = MASK32  # (hash, pos<<1|strand) of a pad entry: sorts after every real one
+
+# device-build routes taken in this process: one-shard builds wholly on
+# the card, shards sketched and sorted on the card, and shards sent to
+# the host by a segment's capacity overflow
+BUILD_ROUTES = {"device_table": 0, "device_sketch_sort": 0, "overflow": 0}
+_routes_lock = threading.Lock()
+
+
+def _count_route(name: str) -> None:
+    with _routes_lock:
+        BUILD_ROUTES[name] += 1
+
+
+def reset_build_routes() -> None:
+    for name in BUILD_ROUTES:
+        BUILD_ROUTES[name] = 0
 
 
 @dataclass
@@ -72,9 +112,16 @@ class IndexShard:
 class BuiltIndex:
     meta: IndexMeta
     shards: list[IndexShard]
-    # device-resident tables of a device-side build, as in the reference;
-    # that build is not ported yet, so the host build leaves it None
+    # a one-shard build on the card: [(mz_rows int32 table on the card,
+    # tag_bits)], which the Classifier uses as it is; None otherwise
     device: list | None = None
+
+
+def _check_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("index build on a CUDA device, but torch.cuda.is_available() is false")
+    return device
 
 
 def sketch_long_sequence(
@@ -112,6 +159,220 @@ def sketch_long_sequence(
         np.concatenate([p[2] for p in parts]),
     )
 
+
+# ---------------------------------------------------------------------------
+# the build on the device: sketch, 2-key sort, occurrence filter, table fill
+# ---------------------------------------------------------------------------
+
+def _sketch_segment(chunk: torch.Tensor, start_in_chunk: int, own_len: int, base: int,
+                    k: int, w: int, frac: float, cap: int):
+    """Sketch one overlap-extended segment and compact the minimizers it
+    owns into ``cap`` slots -> (hash, pos<<1|strand, count), int64
+    tensors on the chunk's device.  Slots past the owned entries hold
+    pads; when count > cap the first cap entries are kept (the caller
+    rejects that segment).  The compaction is a scatter into a spare
+    slot, so nothing syncs with the host."""
+    h, s = mz.kmer_hashes(chunk, k)
+    keep = mz.select_minimizers(h, w, frac=frac)
+    pos = torch.arange(keep.shape[0], device=chunk.device)
+    own = keep & (pos >= start_in_chunk) & (pos < start_in_chunk + own_len)
+    dest = torch.cumsum(own, 0) - 1
+    ok = own & (dest < cap)
+    dest = torch.where(ok, dest, cap)
+    ps = ((pos + (base - start_in_chunk)) << 1) | s.to(torch.int64)
+    out_h = torch.full((cap + 1,), _PAD, dtype=torch.int64, device=chunk.device)
+    out_ps = torch.full((cap + 1,), _PAD, dtype=torch.int64, device=chunk.device)
+    out_h.scatter_(0, dest, torch.where(ok, h, _PAD))
+    out_ps.scatter_(0, dest, torch.where(ok, ps, _PAD))
+    return out_h[:cap], out_ps[:cap], own.sum()
+
+
+def _sort2(h: torch.Tensor, ps: torch.Tensor):
+    """Sort (hash, pos<<1|strand) pairs by hash, then by the second key,
+    both unsigned 32-bit values: one int64 key with the hash biased by
+    2^31 so that the shift cannot overflow.  Pads (0xFFFFFFFF,
+    0xFFFFFFFF) take the largest key and sort last, after a real entry
+    whose hash is 0xFFFFFFFF."""
+    key = torch.sort(((h - (1 << 31)) << 32) | ps).values
+    return (key >> 32) + (1 << 31), key & MASK32
+
+
+def _device_sketch_sort_arrays(codes: np.ndarray, k: int, w: int, frac: float, device):
+    """Sketch and sort one packed reference on ``device``: (h_sorted,
+    ps_sorted, total) int64 tensors there, sorted by (hash, pos), with
+    the pads (0xFFFFFFFF, 0xFFFFFFFF) last; or None when the reference
+    is shorter than k or a segment overflows its compaction capacity
+    (counted in BUILD_ROUTES["overflow"]).
+
+    Each segment of _DEV_SEG bases, extended by 2w + k on both sides and
+    padded with N to one length, is sketched and compacted to seg >> 2
+    slots; the segments concatenate and one sort orders the pairs.  The
+    per-segment counts come back to the host in one transfer."""
+    n = len(codes)
+    if n < k:
+        return None
+    seg = _DEV_SEG
+    cap = seg >> _DEV_CAP_SHIFT
+    overlap = 2 * w + k
+    chunk_len = seg + 2 * overlap
+    dev_codes = torch.from_numpy(np.ascontiguousarray(codes, np.uint8)).to(device)
+    parts_h, parts_ps, counts = [], [], []
+    for start in range(0, n - k + 1, seg):
+        stop = min(n, start + seg)
+        lo = max(0, start - overlap)
+        hi = min(n, stop + overlap)
+        chunk = torch.full((chunk_len,), enc.PAD_CODE, dtype=torch.uint8, device=device)
+        chunk[: hi - lo] = dev_codes[lo:hi]
+        hh, ps, count = _sketch_segment(chunk, start - lo, stop - start, start, k, w, frac, cap)
+        parts_h.append(hh)
+        parts_ps.append(ps)
+        counts.append(count)
+    counts = torch.stack(counts).tolist()
+    if max(counts) > cap:
+        _count_route("overflow")
+        return None
+    h_sorted, ps_sorted = _sort2(torch.cat(parts_h), torch.cat(parts_ps))
+    _count_route("device_sketch_sort")
+    return h_sorted, ps_sorted, sum(counts)
+
+
+def _device_sketch_sort(codes: np.ndarray, k: int, w: int, frac: float, device):
+    """:func:`_device_sketch_sort_arrays` fetched to the host: (hash
+    uint32, pos int64, strand uint8) sorted by (hash, pos) — what the
+    host sketch and a stable argsort give — or None (see there)."""
+    if len(codes) < k:
+        e = np.zeros(0)
+        return e.astype(np.uint32), e.astype(np.int64), e.astype(np.uint8)
+    got = _device_sketch_sort_arrays(codes, k, w, frac, device)
+    if got is None:
+        return None
+    h_sorted, ps_sorted, total = got
+    h = h_sorted[:total].cpu().numpy()
+    ps = ps_sorted[:total].cpu().numpy()
+    return h.astype(np.uint32), ps >> 1, (ps & 1).astype(np.uint8)
+
+
+def _kept_count(h: torch.Tensor, ps: torch.Tensor, total: int, occ_cap: int):
+    """Keep-mask of the occurrence filter over the sorted arrays, and its
+    count on the device.  Equal-hash runs longer than occ_cap are
+    dropped whole (occ_cap 0 keeps every entry); run boundaries break
+    on a validity change as well as on a hash change, so the pads never
+    lengthen the run of a real entry whose hash is 0xFFFFFFFF."""
+    N = h.shape[0]
+    idx = torch.arange(N, device=h.device)
+    valid = idx < total
+    if not occ_cap:
+        return valid, valid.sum()
+    brk = (h[1:] != h[:-1]) | (valid[1:] != valid[:-1])
+    one = torch.ones(1, dtype=torch.bool, device=h.device)
+    run_start = torch.cummax(torch.where(torch.cat([one, brk]), idx, 0), 0).values
+    last = torch.where(torch.cat([brk, one]), idx, N - 1)
+    run_end = torch.cummin(last.flip(0), 0).values.flip(0)  # reverse cummin
+    keep = valid & (run_end - run_start + 1 <= occ_cap)
+    return keep, keep.sum()
+
+
+def _table_fill(h: torch.Tensor, ps: torch.Tensor, keep: torch.Tensor, tag_bits: int,
+                rbits: int) -> torch.Tensor:
+    """The (2^rbits, ROW_SLOTS) packed lookup table from the sorted arrays
+    and their keep-mask: each kept entry goes to row = top rbits of its
+    hash at its rank among the kept entries of that row; ranks past
+    ROW_SLOTS go to a spare row that is dropped.  int32 bit patterns, as
+    ``lookup.build_hash_rows`` gives them."""
+    N = h.shape[0]
+    n_rows = 1 << rbits
+    idx = torch.arange(N, device=h.device)
+    row = h >> (32 - rbits)
+    newrow = torch.cat([torch.ones(1, dtype=torch.bool, device=h.device), row[1:] != row[:-1]])
+    row_start = torch.cummax(torch.where(newrow, idx, 0), 0).values
+    ckeep = torch.cumsum(keep, 0)  # inclusive
+    before = torch.where(row_start > 0, ckeep[(row_start - 1).clamp(min=0)], 0)
+    rank = ckeep - 1 - before
+    ok = keep & (rank < lk.ROW_SLOTS)
+    entries = ((h & ((1 << tag_bits) - 1)) << (32 - tag_bits)) | ps
+    table = torch.zeros((n_rows + 1, lk.ROW_SLOTS), dtype=torch.int32, device=h.device)
+    table.index_put_((torch.where(ok, row, n_rows), torch.where(ok, rank, 0)),
+                     i32_bits(torch.where(ok, entries, 0)))
+    return table[:n_rows]
+
+
+def _device_hash_table(h_sorted: torch.Tensor, ps_sorted: torch.Tensor, total: int,
+                       tag_bits: int, occ_cap: int) -> tuple[torch.Tensor, int]:
+    """The lookup table built where the sorted arrays live, bit-identical
+    to ``lookup.build_hash_rows`` after the host occurrence filter.
+    ``n_kept``, which sizes the rows, is the one scalar read back.
+    Returns (table, n_kept)."""
+    keep, n_kept = _kept_count(h_sorted, ps_sorted, total, occ_cap)
+    n_kept = int(n_kept)
+    return _table_fill(h_sorted, ps_sorted, keep, tag_bits, lk.row_bits_for(n_kept)), n_kept
+
+
+def _host_occ_filter(h: np.ndarray, *rest, occ_cap: int):
+    """Drop equal-hash runs longer than occ_cap from sorted host arrays
+    (occ_cap 0 keeps everything)."""
+    if not occ_cap or not len(h):
+        return (h, *rest)
+    starts = np.flatnonzero(np.concatenate([[True], h[1:] != h[:-1]]))
+    runlen = np.diff(np.concatenate([starts, [len(h)]]))
+    keep = np.repeat(runlen <= occ_cap, runlen)
+    return (h[keep], *(a[keep] for a in rest))
+
+
+class LazyDeviceShard:
+    """An :class:`IndexShard` whose minimizer arrays stay on the card
+    (the one-shard device build) and come to the host, through the host
+    occurrence filter, on first access: artifact save, stacking with
+    other shards.  Classification never needs them, so the card holds
+    only the ``total`` real entries as int32 bit patterns (the
+    reference's uint32 footprint), and drops them once they are fetched."""
+
+    def __init__(self, ref_codes, seq_starts, seq_lengths, seq_accession_id,
+                 pos_accession_id, h_dev, ps_dev, total: int, occ_cap: int):
+        self.ref_codes = ref_codes
+        self.seq_starts = seq_starts
+        self.seq_lengths = seq_lengths
+        self.seq_accession_id = seq_accession_id
+        self.pos_accession_id = pos_accession_id
+        self._h_dev = i32_bits(h_dev[:total])
+        self._ps_dev = ps_dev[:total].to(torch.int32)  # pos << 1 | strand < 2^31
+        self._total, self._occ_cap = total, occ_cap
+        self._host = None
+
+    def _fetch(self):
+        if self._host is None:
+            h = self._h_dev.cpu().numpy().view(np.uint32)
+            ps = self._ps_dev.cpu().numpy().astype(np.int64)
+            h, ps = _host_occ_filter(h, ps, occ_cap=self._occ_cap)
+            self._host = (h, (ps >> 1).astype(np.int32), (ps & 1).astype(np.uint8))
+            self._h_dev = self._ps_dev = None
+        return self._host
+
+    @property
+    def mz_hash(self):
+        return self._fetch()[0]
+
+    @property
+    def mz_pos(self):
+        return self._fetch()[1]
+
+    @property
+    def mz_strand(self):
+        return self._fetch()[2]
+
+    @property
+    def n_minimizers(self):
+        return len(self.mz_hash)
+
+
+def _on_device(device: torch.device) -> bool:
+    """Whether a build on ``device`` takes the device route: on a CUDA
+    device it does; the CPU device builds on the host."""
+    return device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# genome bin-packing across shards
+# ---------------------------------------------------------------------------
 
 def split_genomes(
     sizes: list[int], n_shards: int | None = None, max_shard_bytes: int | None = None
@@ -184,17 +445,9 @@ def _assign_units(
         n += 1
 
 
-def _build_shard(
-    members: list[int],
-    units: list[tuple[int, np.ndarray]],
-    k: int,
-    w: int,
-    guard: int,
-    frac: float,
-    occ_cap: int = OCC_CAP,
-) -> IndexShard:
-    """Pack the member units, sketch, stable hash sort, occ cap,
-    per-position accession fill."""
+def _pack(members: list[int], units, guard: int):
+    """Pack the member units into one code array -> (PackedSeqs, the
+    per-position accession ids)."""
     builder = enc.PackedSeqsBuilder(guard=guard)
     for ui in members:
         gi, rec_codes = units[ui]
@@ -204,17 +457,35 @@ def _build_shard(
         raise ValueError(
             "index shard exceeds 64 Mbase; raise n_shards or lower max_shard_bytes"
         )
-    h, pos, strand = sketch_long_sequence(packed.codes, k, w, frac=frac)
-    order = np.argsort(h, kind="stable")
-    h_s, pos_s, strand_s = h[order], pos[order], strand[order]
-    if occ_cap and len(h_s):
-        starts = np.flatnonzero(np.concatenate([[True], h_s[1:] != h_s[:-1]]))
-        runlen = np.diff(np.concatenate([starts, [len(h_s)]]))
-        keep = np.repeat(runlen <= occ_cap, runlen)
-        h_s, pos_s, strand_s = h_s[keep], pos_s[keep], strand_s[keep]
     pos_acc = np.zeros(max(len(packed.codes), 1), dtype=np.uint16)
     for s0, ln, aid in zip(packed.starts, packed.lengths, packed.seq_accession_id):
         pos_acc[s0 : s0 + ln] = aid
+    return packed, pos_acc
+
+
+def _build_shard(
+    members: list[int],
+    units: list[tuple[int, np.ndarray]],
+    k: int,
+    w: int,
+    guard: int,
+    frac: float,
+    occ_cap: int,
+    sketch_device: torch.device | None,
+) -> IndexShard:
+    """Pack the member units, sketch (on ``sketch_device`` for a shard of
+    at least _DEV_MIN_SHARD bases, on the host when it is None), stable
+    hash sort, occ cap, per-position accession fill."""
+    packed, pos_acc = _pack(members, units, guard)
+    dev = (_device_sketch_sort(packed.codes, k, w, frac, sketch_device)
+           if sketch_device is not None and len(packed.codes) >= _DEV_MIN_SHARD else None)
+    if dev is not None:
+        h_s, pos_s, strand_s = dev  # already sorted by (hash, pos)
+    else:
+        h, pos, strand = sketch_long_sequence(packed.codes, k, w, frac=frac)
+        order = np.argsort(h, kind="stable")
+        h_s, pos_s, strand_s = h[order], pos[order], strand[order]
+    h_s, pos_s, strand_s = _host_occ_filter(h_s, pos_s, strand_s, occ_cap=occ_cap)
     return IndexShard(
         ref_codes=packed.codes,
         seq_starts=packed.starts,
@@ -227,25 +498,64 @@ def _build_shard(
     )
 
 
-def _build_shards_threaded(assignment, units, k, w, guard, frac, occ_cap) -> list[IndexShard]:
-    """Build the shards concurrently, one thread per shard (at most 8):
-    _build_shard is pure, and the torch sketch and numpy's large array
-    ops release the GIL, so the shards' sketch chains overlap.  Each
-    shard is the same as from a serial build."""
+def _build_shard_device(members, units, k, w, guard, frac, occ_cap, device):
+    """The one-shard build on ``device``: pack on the host, then sketch,
+    sort and fill the hash table on the device.  Returns
+    (LazyDeviceShard, table, tag_bits), or None when the reference is
+    shorter than k or a segment overflows (the caller builds on the
+    host)."""
+    packed, pos_acc = _pack(members, units, guard)
+    got = _device_sketch_sort_arrays(packed.codes, k, w, frac, device)
+    if got is None:
+        return None
+    h_dev, ps_dev, total = got
+    tag_bits = lk.tag_bits_for(len(packed.codes))
+    table, _n_kept = _device_hash_table(h_dev, ps_dev, total, tag_bits, occ_cap)
+    _count_route("device_table")
+    shard = LazyDeviceShard(
+        ref_codes=packed.codes,
+        seq_starts=packed.starts,
+        seq_lengths=packed.lengths,
+        seq_accession_id=packed.seq_accession_id,
+        pos_accession_id=pos_acc,
+        h_dev=h_dev, ps_dev=ps_dev, total=total, occ_cap=occ_cap,
+    )
+    return shard, table, tag_bits
+
+
+def _build_shards_threaded(assignment, units, k, w, guard, frac, occ_cap,
+                           device: torch.device) -> tuple[list, list | None]:
+    """Build the shards -> (shards, BuiltIndex.device).  A one-shard build
+    on the device route runs wholly on the device.  Otherwise one thread
+    per shard (at most 8): _build_shard is pure, and the torch sketch
+    and numpy's large array ops release the GIL, so the shards' sketch
+    chains overlap.  Each shard is the same as from a serial build."""
+    sketch_device = device if _on_device(device) else None
+    if len(assignment) == 1 and sketch_device is not None:
+        out = _build_shard_device(assignment[0], units, k, w, guard, frac, occ_cap, device)
+        if out is not None:
+            shard, table, tag_bits = out
+            return [shard], [(table, tag_bits)]
+        # the overflow route: the whole shard on the host (the device
+        # sketch would overflow again)
+        sketch_device = None
     if len(assignment) <= 1:
-        return [_build_shard(m, units, k, w, guard, frac, occ_cap) for m in assignment]
+        return [_build_shard(m, units, k, w, guard, frac, occ_cap, sketch_device)
+                for m in assignment], None
     with ThreadPoolExecutor(max_workers=min(len(assignment), 8)) as pool:
         return list(pool.map(
-            lambda m: _build_shard(m, units, k, w, guard, frac, occ_cap), assignment))
+            lambda m: _build_shard(m, units, k, w, guard, frac, occ_cap, sketch_device),
+            assignment)), None
 
 
-def _build(units, n_shards, max_shard_bytes, k, w, guard, frac, occ_cap):
+def _build(units, n_shards, max_shard_bytes, k, w, guard, frac, occ_cap, device):
     assignment = _assign_units(
         [len(u[1]) for u in units],
         n_shards if max_shard_bytes is None else None,
         max_shard_bytes,
     )
-    return _build_shards_threaded(assignment, units, k, w, guard, frac, occ_cap)
+    return _build_shards_threaded(assignment, units, k, w, guard, frac, occ_cap,
+                                  _check_device(device))
 
 
 def build_index(
@@ -257,9 +567,13 @@ def build_index(
     guard: int = 32,
     frac: float = mz.FRAC_DEFAULT,
     occ_cap: int = OCC_CAP,
+    *,
+    device,
 ) -> BuiltIndex:
-    """Build a sharded index from genome FASTA files;
-    ``genomes`` is a list of (fasta_path, [species_name, accession])."""
+    """Build a sharded index from genome FASTA files on ``device`` (see
+    the module docstring); ``genomes`` is a list of (fasta_path,
+    [species_name, accession]), and the accession id of a genome is its
+    position in that list."""
     if not genomes:
         raise ValueError("build_index: empty genome set (nothing to index)")
     genome_lengths = np.zeros(len(genomes), dtype=np.int64)
@@ -277,8 +591,8 @@ def build_index(
         genome_lengths=genome_lengths,
         k=k, w=w, frac=frac, occ_cap=occ_cap,
     )
-    shards = _build(units, n_shards, max_shard_bytes, k, w, guard, frac, occ_cap)
-    return BuiltIndex(meta=meta, shards=shards)
+    shards, dev = _build(units, n_shards, max_shard_bytes, k, w, guard, frac, occ_cap, device)
+    return BuiltIndex(meta=meta, shards=shards, device=dev)
 
 
 def build_index_from_arrays(
@@ -292,8 +606,11 @@ def build_index_from_arrays(
     guard: int = 32,
     frac: float = mz.FRAC_DEFAULT,
     occ_cap: int = OCC_CAP,
+    *,
+    device,
 ) -> BuiltIndex:
-    """Build an index directly from uint8 code arrays (one per genome)."""
+    """Build an index on ``device`` directly from uint8 code arrays (one
+    per genome)."""
     if not seqs:
         raise ValueError("build_index_from_arrays: empty genome set")
     n = len(seqs)
@@ -304,5 +621,64 @@ def build_index_from_arrays(
         k=k, w=w, frac=frac, occ_cap=occ_cap,
     )
     units = _segment_records([[np.asarray(s, dtype=np.uint8)] for s in seqs])
-    shards = _build(units, n_shards, max_shard_bytes, k, w, guard, frac, occ_cap)
+    shards, dev = _build(units, n_shards, max_shard_bytes, k, w, guard, frac, occ_cap, device)
+    return BuiltIndex(meta=meta, shards=shards, device=dev)
+
+
+def merge_built(parts: list[BuiltIndex]) -> BuiltIndex:
+    """Combine independently built or cached index groups (guests,
+    hosts) into one index, re-basing accession ids per part.  A merge of
+    several parts keeps no device tables: the Classifier stacks its
+    shards."""
+    parts = [p for p in parts if p is not None]
+    if len(parts) == 1:
+        return parts[0]
+    k, w, frac = parts[0].meta.k, parts[0].meta.w, parts[0].meta.frac
+    for p in parts:
+        if (p.meta.k, p.meta.w, p.meta.frac) != (k, w, frac):
+            raise ValueError("cannot merge indexes with different k/w/frac")
+    tax_units, accessions, lengths, shards = [], [], [], []
+    base = 0
+    for p in parts:
+        tax_units += p.meta.tax_units
+        accessions += p.meta.accessions
+        lengths.append(p.meta.genome_lengths)
+        for sh in p.shards:
+            if base + p.meta.n_accessions > np.iinfo(np.uint16).max:
+                raise ValueError("merged index exceeds 65535 accessions")
+            shards.append(IndexShard(
+                ref_codes=sh.ref_codes,
+                seq_starts=sh.seq_starts,
+                seq_lengths=sh.seq_lengths,
+                seq_accession_id=sh.seq_accession_id + base,
+                mz_hash=sh.mz_hash,
+                mz_pos=sh.mz_pos,
+                mz_strand=sh.mz_strand,
+                pos_accession_id=(sh.pos_accession_id.astype(np.int32) + base).astype(np.uint16),
+            ))
+        base += p.meta.n_accessions
+    meta = IndexMeta(
+        tax_units=tax_units,
+        accessions=accessions,
+        genome_lengths=np.concatenate(lengths) if lengths else np.zeros(0, np.int64),
+        k=k, w=w, frac=frac,
+        occ_cap=parts[0].meta.occ_cap,
+    )
     return BuiltIndex(meta=meta, shards=shards)
+
+
+def content_key(
+    genomes: list[tuple[str, list[str]]], k: int, w: int, n_shards: int,
+    frac: float = mz.FRAC_DEFAULT,
+) -> str:
+    """Content-addressed artifact key: the build parameters, each
+    genome's header and its file size."""
+    hsh = hashlib.sha256()
+    hsh.update(f"k={k},w={w},shards={n_shards},frac={frac}".encode())
+    for path, hdr in genomes:
+        hsh.update("|".join(hdr).encode())
+        try:
+            hsh.update(str(os.path.getsize(path)).encode())
+        except OSError:
+            pass
+    return hsh.hexdigest()[:16]

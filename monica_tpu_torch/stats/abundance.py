@@ -13,8 +13,13 @@ numpy) — counterpart of ``monica_tpu/stats/abundance.py``.
 The port does not depend on pandas: the CSVs are written with ``csv``
 byte for byte as pandas' ``to_csv`` writes the JAX package's frames (a
 ``tax_unit,accession,<samples>`` header, float64 cells printed as numpy
-prints them, NaN as an empty field, minimal quoting).  Reading a table
-back (the JAX package's ``read_dataframe``) is not ported yet.
+prints them, NaN as an empty field, minimal quoting).
+:func:`read_dataframe` reads such a table back (the ``plot_only`` path)
+exactly: each cell is parsed by Python's ``float``, which inverts the
+shortest repr the writer printed.  The JAX package's reader, pandas'
+default C parser, lands some cells off the written value (ROADMAP.md,
+faults section) and infers numeric row labels; the port keeps the
+labels as the strings written.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from pathlib import Path
 
 import numpy as np
 
+from monica_tpu_torch.data.tables import NA_STRINGS
 from monica_tpu_torch.index.build import IndexMeta
 
 DATAFRAME_FILENAME = "monica.dataframe"
@@ -145,3 +151,15 @@ def export_tables(state: AbundanceState, meta: IndexMeta, output_folder: str | o
     norm.to_csv(output_folder / DATAFRAME_FILENAME)
     raw.to_csv(output_folder / RAW_DATAFRAME_FILENAME)
     return norm, raw
+
+
+def read_dataframe(path: str | os.PathLike) -> Table:
+    """Read a table written by :meth:`Table.to_csv` (or by the JAX
+    package's ``export_tables``) back into a :class:`Table`: the first
+    two columns are the (tax_unit, accession) row labels, the rest the
+    samples; an empty cell (or one of pandas' NA strings) is NaN."""
+    with open(path, newline="") as fh:
+        header, *rows = list(csv.reader(fh))
+    values = np.array([[np.nan if c in NA_STRINGS else float(c) for c in r[2:]] for r in rows],
+                      dtype=np.float64).reshape(len(rows), len(header) - 2)
+    return Table([(r[0], r[1]) for r in rows], header[2:], values)

@@ -43,7 +43,7 @@ def _assert_same_index(want, got):
 def test_build_index_from_arrays_bit_equal(kw):
     seqs = _genomes()
     want = ref_build.build_index_from_arrays(seqs, **kw)
-    got = build.build_index_from_arrays(seqs, **kw)
+    got = build.build_index_from_arrays(seqs, **kw, device="cpu")
     _assert_same_index(want, got)
     assert got.shards[0].n_minimizers > 1000
 
@@ -56,7 +56,7 @@ def test_build_index_from_fasta_bit_equal(tmp_path):
         path = tmp_path / f"g{i}.fna.gz"
         make_fasta_gz(path, recs)
         genomes.append((str(path), [f"Sp_{i}", f"ACC{i:03d}.1"]))
-    _assert_same_index(ref_build.build_index(genomes), build.build_index(genomes))
+    _assert_same_index(ref_build.build_index(genomes), build.build_index(genomes, device="cpu"))
 
 
 def test_segmenting_and_assignment_match(monkeypatch):
@@ -107,12 +107,12 @@ def test_threaded_shard_build_equals_serial():
     """A multi-shard build runs a thread per shard; every shard equals
     the one a serial _build_shard call makes, in assignment order."""
     seqs = _genomes(seed=4, n=6, length=20_000)
-    got = build.build_index_from_arrays(seqs, n_shards=4)
+    got = build.build_index_from_arrays(seqs, n_shards=4, device="cpu")
     units = build._segment_records([[s] for s in seqs])
     assignment = build._assign_units([len(u[1]) for u in units], 4, None)
     assert len(assignment) == len(got.shards) == 4
     for members, shard in zip(assignment, got.shards):
-        want = build._build_shard(members, units, 15, 10, 32, 1.0)
+        want = build._build_shard(members, units, 15, 10, 32, 1.0, build.OCC_CAP, None)
         for f in SHARD_ARRAYS:
             np.testing.assert_array_equal(getattr(shard, f), getattr(want, f), err_msg=f)
     _assert_same_index(ref_build.build_index_from_arrays(seqs, n_shards=4), got)

@@ -66,6 +66,28 @@ def test_module_list_covers_the_slice():
         assert f"monica_tpu_torch.{name}" in MODULES
 
 
+def test_module_list_covers_the_product_path():
+    for name in ("index.artifact", "data.tables", "data.fetcher", "data.taxonomy",
+                 "plots.barplot", "orchestrate", "cli", "utils.root", "utils.units"):
+        assert f"monica_tpu_torch.{name}" in MODULES
+
+
+def test_cli_entry_point_runs_with_jax_and_pandas_blocked():
+    """``python -m monica_tpu_torch.cli`` starts and answers --version and
+    --help with jax, the JAX package and pandas unimportable."""
+    for flag, want in (("--version", "monica_tpu_torch "), ("--help", "--device")):
+        proc = _run_blocked(
+            "import runpy\n"
+            f"sys.argv = ['monica_tpu_torch', {flag!r}]\n"
+            "try:\n"
+            "    runpy.run_module('monica_tpu_torch.cli', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+        )
+        assert proc.returncode == 0, proc.stderr
+        assert want in proc.stdout
+
+
 def test_no_jax_import_in_source():
     for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
@@ -129,13 +151,13 @@ def test_classifier_requires_device_and_refuses_mesh():
     from monica_tpu_torch.index.build import build_index_from_arrays
 
     rng = np.random.default_rng(0)
-    built = build_index_from_arrays([rng.integers(0, 4, 5000).astype(np.uint8)])
+    built = build_index_from_arrays([rng.integers(0, 4, 5000).astype(np.uint8)], device="cpu")
     with pytest.raises(TypeError):
         rt.Classifier(built)
     with pytest.raises(NotImplementedError, match="multi-device"):
         rt.Classifier(built, device="cpu", mesh=object())
     two = build_index_from_arrays(
-        [rng.integers(0, 4, 5000).astype(np.uint8) for _ in range(2)], n_shards=2
+        [rng.integers(0, 4, 5000).astype(np.uint8) for _ in range(2)], n_shards=2, device="cpu"
     )
     clf = rt.Classifier(two, device="cpu")  # a multi-shard index: stacked groups
     assert isinstance(clf.index, tuple) and clf.index[0].mz_rows.shape[0] == 2
