@@ -5,9 +5,12 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the banded-SW CUDA kernels from ``monica_tpu_torch/ops/csrc``,
-holds each one bit-equal to its plain PyTorch version on the card, then
-drives the port's two paths:
+It builds the banded-SW CUDA kernels from ``monica_tpu_torch/ops/csrc``
+(and the FASTQ parser, both at once) and prints what ptxas and cuobjdump
+say of them (``[build]``: registers, shared memory, spills, DPX
+instructions); holds each kernel bit-equal to its plain PyTorch version
+on the card at the main path's shapes, with its time beside its bound
+(``[kernels]``); then drives the port's paths:
 
 * the single-shard classify step — a 64 Mbase index and
   ``Classifier.classify``/``fetch`` — on the bench workload (16 batches
@@ -26,8 +29,11 @@ drives the port's two paths:
 * the multi-shard streaming runtime — a 300 Mbase, 5-shard gut index
   sketched and sorted on the card (``[gut_index]``) and ``run_once`` over
   a folder of 8 nanopore FASTQ samples of 1,500 reads of 300-40,000 bp,
-  then the abundance tables (``[stream]``), and the chunked, CPU and
-  serial runs held equal to it (``[stream_agree]``);
+  then the abundance tables (``[stream]``, with the SW kernels' launch
+  shapes), and the chunked, CPU and serial runs held equal to it
+  (``[stream_agree]``); one more ``run_once`` of the same samples under
+  ``torch.profiler`` gives the device's busy share over the pass and the
+  SW kernels' device time and share of it (``[stream_profile]``);
 * the product path — the CLI (``python -m monica_tpu_torch.cli``) on an
   offline world of the 10 Zymo genomes (taxdump, assembly summary,
   ``.fna.gz`` files) and 4 FASTQ samples of 4,000 reads: ``build_index``,
@@ -49,12 +55,14 @@ import gzip
 import json
 import os
 import platform
+import re
 import runpy
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -107,6 +115,12 @@ FOCUS_SPECIES = "Escherichia coli"
 CLI_SAMPLES = 4
 CLI_READS = 4000
 SOURCE = "monica_tpu_torch/ops/csrc/banded_sw.cu"
+# the card's peak rates, for a kernel's bound: HBM bytes/s from NVIDIA's
+# H100 SXM data sheet; int32 instructions/s, which the data sheet does not
+# list, as 132 SMs x 64 INT32 lanes x the 1.98 GHz boost clock, DPX
+# instructions taken at the same rate
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # (kernel instance, TPU kernel it replaces)
 KERNELS = {
     "banded_sw_packed_w64": "monica_tpu/ops/extend.py:449",  # _sw_kernel_pairs
@@ -135,10 +149,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def sw_case(rng, dev, B, L, p, short=False, sub=0.08, alphabet=4):
+def sw_case(rng, dev, B, L, p, short=False, sub=0.08, alphabet=4, first=()):
     """Reads from a random reference at ``sub`` substitutions and their
     reference windows on the card; ``short`` PAD-tails every other read,
-    and a 2-letter ``alphabet`` makes equal-score cells (ties) common."""
+    a 2-letter ``alphabet`` makes equal-score cells (ties) common, and
+    ``first`` sets the lengths of the first reads."""
     W = p.band
     ref = rng.integers(0, alphabet, 400_000).astype(np.uint8)
     starts = rng.integers(0, len(ref) - L - W, B)
@@ -150,34 +165,102 @@ def sw_case(rng, dev, B, L, p, short=False, sub=0.08, alphabet=4):
         for b in range(0, B, 2):
             lengths[b] = int(rng.integers(1, L))
             q[b, lengths[b]:] = 4
+    for b, n in enumerate(first):
+        lengths[b] = n
+        q[b, n:] = 4
     refwin = ex.extract_ref_windows(torch.from_numpy(ref).to(dev),
                                     torch.from_numpy(starts.astype(np.int32)).to(dev), L, W)
     return (torch.from_numpy(q).to(dev), refwin.contiguous(),
             torch.from_numpy(lengths).to(dev))
 
 
+def kernel_ms(fn) -> float:
+    """Mean device ms of fn() (CUDA events), after 0.2 s of calls that
+    bring the card's clock up, over enough calls to fill ~0.1 s."""
+    torch.cuda.synchronize()
+    t0, n = time.perf_counter(), 0
+    while n < 2 or time.perf_counter() - t0 < 0.2:
+        fn()
+        torch.cuda.synchronize()
+        n += 1
+    est_ms = (time.perf_counter() - t0) / n * 1e3
+    return cuda_ms(fn, max(3, int(100 / est_ms)))
+
+
+def sw_bound(name: str, lengths: np.ndarray, L: int, p) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card needs for one call,
+    the larger of its bytes (q, refwin and lengths read once, score and
+    mlen written once) over HBM_BYTES_PER_S and its int32 instructions,
+    for the rows these reads need, over INT32_OPS_PER_S.  The count is
+    of instructions with Hopper's fused DPX forms, per cell and row, with
+    k = ceil(log3 window) three-way maxes for the horizontal window
+    (max is idempotent, so overlapping triples cover it):
+    packed 7 + k — the match test and its select, the up candidate, the
+    diagonal add, max and floor in one __viaddmax_s32_relu, the lane gap
+    added, the gap taken off and the max in one __viaddmax_s32, the best;
+    pair state 18 + k — the match test and its select, the up and
+    diagonal candidates, their max with its "diagonal >= up" predicate in
+    one __vibmax_s32, the floor and its predicate, m's diagonal successor
+    and its two selections, the key u * 128 + d, h and the argmax taken
+    from the key (shift, subtract, and), the select of the fetched m, and
+    the lazy best (one __vibmax_s32 with its predicate, two selects).
+    Shuffles are left out, so this stays a lower bound."""
+    B, W = len(lengths), p.band
+    rows = int(np.clip(lengths, 0, L).sum())
+    window, k = 1 << int(np.ceil(np.log2(ex._gap_reach(W, p.max_gap)))), 0
+    while 3**k < window:
+        k += 1
+    per_cell = 7 + k if name.startswith("banded_sw_packed") else 18 + k
+    t_ops = rows * W * per_cell / INT32_OPS_PER_S
+    t_bytes = (B * L + B * (L + W) + 12 * B) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def compare_kernels(dev) -> dict:
-    """Each kernel against banded_sw_torch on the card, bit-equal; times
-    at the main path's shapes.  The packed kernel is also held at the
-    8 and 16 kb buckets the stream's rescues give it, where the packed
-    state's mlen takes 14 and 15 bits."""
+    """Each kernel against banded_sw_torch on the card, bit-equal, at the
+    main path's shapes: the bench-era 128 x 1 kb and 8 x 32 kb, the
+    stream's rescue tiers (~33 reads a tier) from 512 bp to 32 kb, reach
+    20 and the full band at both widths, lengths 0 and 1, odd B, ties,
+    and pair state at small L with both key widths (match 2^18: 64-bit
+    keys; 8,000 and 4,000: 32-bit).  Timed cases print their bound, ns a
+    row (over the longest read: the serial chain) and library_ms=none:
+    no PyTorch call computes a banded SW.  The first timed case of each
+    kernel goes into the JSON line."""
     rng = np.random.default_rng(SEED)
     p64, p128 = ex.ExtendParams(band=64), ex.ExtendParams(band=128)
-    big_match = dict(match=1 << 18)  # disables packing at small L
-    cases = [  # (kernel instance, B, L, params, short, timed, alphabet)
-        ("banded_sw_packed_w64", 128, 1024, p64, False, True, 4),
-        ("banded_sw_packed_w64", 7, 300, p64, True, False, 4),
-        ("banded_sw_packed_w64", 16, 8192, p64, True, False, 4),
-        ("banded_sw_packed_w64", 16, 16384, p64, True, False, 4),
-        ("banded_sw_packed_w128", 128, 1024, p128, False, True, 4),
-        ("banded_sw_pairstate_w64", 8, 32768, p64, True, True, 4),
-        # the pair-state tie rule on tie-rich input, and pair state at W=128
-        ("banded_sw_pairstate_w64", 16, 1024, p64._replace(**big_match), True, False, 2),
-        ("banded_sw_pairstate_w128", 8, 1024, p128._replace(**big_match), True, False, 4),
+    big = dict(match=1 << 18)  # disables packing at small L; 64-bit keys
+    g20, g0 = dict(max_gap=20), dict(max_gap=0)
+    cases = [  # (kernel instance, B, L, params, short, timed, alphabet, first lengths)
+        ("banded_sw_packed_w64", 128, 1024, p64, False, True, 4, ()),
+        ("banded_sw_packed_w64", 33, 16384, p64, True, True, 4, ()),
+        ("banded_sw_packed_w64", 7, 300, p64, True, False, 4, ()),
+        ("banded_sw_packed_w64", 33, 512, p64, True, False, 4, (0, 1)),
+        ("banded_sw_packed_w64", 33, 2048, p64, True, False, 4, (0, 1)),
+        ("banded_sw_packed_w64", 33, 4096, p64, True, False, 4, ()),
+        ("banded_sw_packed_w64", 16, 8192, p64, True, False, 4, ()),
+        ("banded_sw_packed_w64", 16, 16384, p64, True, False, 4, ()),
+        ("banded_sw_packed_w64", 9, 1024, p64._replace(**g20), True, False, 2, (0, 1)),
+        ("banded_sw_packed_w64", 9, 1024, p64._replace(**g0), True, False, 4, (1,)),
+        ("banded_sw_packed_w128", 128, 1024, p128, False, True, 4, ()),
+        ("banded_sw_packed_w128", 9, 1024, p128._replace(**g20), True, False, 2, (0, 1)),
+        ("banded_sw_packed_w128", 9, 1024, p128._replace(**g0), True, False, 4, (1,)),
+        ("banded_sw_pairstate_w64", 8, 32768, p64, True, True, 4, ()),
+        ("banded_sw_pairstate_w64", 33, 32768, p64, True, True, 4, (0, 1)),
+        ("banded_sw_pairstate_w64", 9, 32768, p64, True, False, 2, ()),
+        ("banded_sw_pairstate_w64", 16, 1024, p64._replace(**big), True, False, 2, ()),
+        ("banded_sw_pairstate_w64", 9, 1024, p64._replace(**g20, **big), True, False, 2, (0, 1)),
+        ("banded_sw_pairstate_w64", 9, 1024, p64._replace(**g0, **big), True, False, 4, (1,)),
+        ("banded_sw_pairstate_w64", 9, 1024, p64._replace(match=8000), True, False, 2, (0,)),
+        ("banded_sw_pairstate_w128", 8, 1024, p128._replace(**big), True, False, 4, ()),
+        ("banded_sw_pairstate_w128", 9, 1024, p128._replace(**g20, **big), True, False, 2, (0, 1)),
+        ("banded_sw_pairstate_w128", 9, 1024, p128._replace(**g0, **big), True, False, 4, (1,)),
+        ("banded_sw_pairstate_w128", 9, 2048, p128._replace(match=4000), True, False, 2, (0,)),
     ]
     out = {}
-    for name, B, L, p, short, timed, alphabet in cases:
-        q, refwin, lengths = sw_case(rng, dev, B, L, p, short, alphabet=alphabet)
+    for name, B, L, p, short, timed, alphabet, first in cases:
+        q, refwin, lengths = sw_case(rng, dev, B, L, p, short, alphabet=alphabet, first=first)
+        check((ex.packed_mbits(L, p) > 0) == name.startswith("banded_sw_packed"),
+              f"{name} B={B} L={L}: the case takes the other kernel")
         before = _native.LAUNCHES[name]
         ks, km = ex.banded_sw(q, refwin, lengths, p, impl="cuda")
         torch.cuda.synchronize()
@@ -187,18 +270,85 @@ def compare_kernels(dev) -> dict:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = int(max((ks - ps).abs().max(), (km - pm).abs().max()))
-        check(err == 0, f"{name} B={B} L={L}: kernel differs from plain by {err}")
-        check(bool((ks >= 0).all() and (km <= lengths).all()), f"{name}: implausible output")
+        check(err == 0, f"{name} B={B} L={L} max_gap={p.max_gap}: kernel differs from plain by {err}")
+        check(bool((ks >= 0).all() and (km <= lengths.clamp(min=0)).all()),
+              f"{name}: implausible output")
         entry = out.setdefault(name, {"max_abs_err": 0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        msg = dict(kernel=name, B=B, L=L, W=p.band, mbits=ex.packed_mbits(L, p), bit_equal=True)
+        msg = dict(kernel=name, B=B, L=L, W=p.band, max_gap=p.max_gap, match=p.match,
+                   mbits=ex.packed_mbits(L, p), bit_equal=True)
         if timed:
-            reps = 3 if L > 16384 else 20
-            ms = cuda_ms(lambda: ex.banded_sw(q, refwin, lengths, p, impl="cuda"), reps)
-            entry.update(ms=ms, plain_ms=plain_ms)
-            msg.update(kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}")
+            lens = lengths.cpu().numpy()
+            ms = kernel_ms(lambda: ex.banded_sw(q, refwin, lengths, p, impl="cuda"))
+            bound_ms, bound_by = sw_bound(name, lens, L, p)
+            if "ms" not in entry:
+                entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            msg.update(kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
+                       bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+                       ns_per_row=f"{ms * 1e6 / max(int(lens.max()), 1):.1f}", library_ms="none")
         say("kernels", **msg)
     return out
+
+
+def ptxas_summary(log: str) -> dict:
+    """Per kernel (kind and width): instances, the range of registers a
+    thread, shared memory and the stack and spill bytes, from -Xptxas -v."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            k = re.search(r"banded_sw_(packed|pairstate)_kernelILi(\d+)E", entry.group(1))
+            name = f"banded_sw_{k.group(1)}_w{k.group(2)}" if k else None
+            if name:
+                e = out.setdefault(name, {"instances": 0, "regs": [], "smem": 0, "stack_spill": 0})
+                e["instances"] += 1
+        elif name and "spill" in line:
+            out[name]["stack_spill"] += sum(int(x) for x in re.findall(r"(\d+) bytes", line))
+        elif name and "Used" in line:
+            out[name]["regs"].append(int(re.search(r"Used (\d+) registers", line).group(1)))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = max(out[name]["smem"], int(smem.group(1)) if smem else 0)
+    for e in out.values():
+        e["regs"] = f"{min(e['regs'])}-{max(e['regs'])}"
+    return out
+
+
+def dpx_opcodes(lib: Path) -> dict | str:
+    """Counts of Hopper's DPX integer opcodes in the library's SASS."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    if not tool.exists():
+        return "cuobjdump unavailable"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    ops = re.findall(r"\b(VIADDMNMX|VIMNMX3|VIMNMX)((?:\.\w+)*)", sass)
+    counts = {}
+    for op, mods in ops:
+        key = op + (".RELU" if "RELU" in mods else "")
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def build_all() -> None:
+    """[build]: the kernels and the FASTQ parser, built at once (nvcc and
+    g++)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        main = pool.submit(_native.build)
+        parser = pool.submit(native.available)
+        main.result()
+        parsed = parser.result()
+    _native.load()
+    ptxas = ptxas_summary(_native.library_path().with_suffix(".log").read_text())
+    say("build", seconds=f"{time.perf_counter() - t0:.2f}", library=_native.library_path().name,
+        fastq_parser=native.library_path().name if parsed else "unavailable",
+        ptxas=json.dumps(ptxas, separators=(",", ":")),
+        dpx=json.dumps(dpx_opcodes(_native.library_path()), separators=(",", ":")))
+    check(parsed, "the native FASTQ parser did not build")
+    check(set(ptxas) == set(KERNELS) | {"banded_sw_pairstate_w128"},
+          f"ptxas reported {sorted(ptxas)}")
+    check(all(e["stack_spill"] == 0 for e in ptxas.values()), "a kernel spills or uses a stack")
 
 
 def host_cpu() -> str:
@@ -266,20 +416,13 @@ def busy_share(clf, codes, lengths) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_ms = synced_ms(lambda: [clf.fetch(*clf.classify(b, lengths)) for b in codes])
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, cur = 0.0, None
-    for s, e in spans:
-        if cur is None or s > cur[1]:
-            busy_us += 0 if cur is None else cur[1] - cur[0]
-            cur = [s, e]
-        else:
-            cur[1] = max(cur[1], e)
-    busy_us += 0 if cur is None else cur[1] - cur[0]
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:  # the profiler saw no device activity
         return dict(batches=len(codes), wall_ms=round(wall_ms, 2), busy_share="not measured")
+    busy_ms = merged_ms(spans)
     return dict(batches=len(codes), wall_ms=round(wall_ms, 2), device_events=len(spans),
-                busy_ms=round(busy_us / 1e3, 3), busy_share=round(busy_us / 1e3 / wall_ms, 4))
+                busy_ms=round(busy_ms, 3), busy_share=round(busy_ms / wall_ms, 4))
 
 
 def run(clf, codes, lengths):
@@ -580,6 +723,60 @@ def host_syncs(clf, codes, lengths) -> list:
             if "synchronizing" in str(w.message)]
 
 
+def launch_shapes() -> dict:
+    """The SW launches since the last reset, as "kernel:BxL" -> count."""
+    return {f"{k}:{B}x{L}": n for (k, B, L), n in sorted(_native.LAUNCH_SHAPES.items())}
+
+
+def merged_ms(spans) -> float:
+    """Milliseconds covered by the union of (start, end) microsecond spans."""
+    busy_us, cur = 0.0, None
+    for s, e in sorted(spans):
+        if cur is None or s > cur[1]:
+            busy_us += 0 if cur is None else cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    busy_us += 0 if cur is None else cur[1] - cur[0]
+    return busy_us / 1e3
+
+
+def stream_profile(dev, built, clf, tmp: Path, first: dict) -> None:
+    """[stream_profile]: run_once over the [stream] samples once more, under
+    torch.profiler: the device's busy share over the pass (the union of
+    its kernel and copy intervals over the wall time) and each SW
+    kernel's summed device ms, with their sum's share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, out = tmp / "p_query", tmp / "p_out"
+    q.mkdir()
+    for name, data in first["inputs"].items():
+        (q / name).write_bytes(data)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        reports, wall_ms = synced_ms(lambda: rt.run_once(clf, q, out, max_batch=STREAM_BATCH))
+    check_consumed(q, reports, STREAM_SAMPLES, "stream_profile")
+    check(report_rows(reports) == first["reports"], "stream_profile: reports differ from [stream]")
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(device), "stream_profile: the profiler saw no device activity")
+    busy_ms = merged_ms((e.time_range.start, e.time_range.end) for e in device)
+    sw_ms, sw_n = {}, {}
+    for e in device:
+        k = re.search(r"banded_sw_(packed|pairstate)_kernel<(\d+)", e.name)
+        if k:
+            name = f"banded_sw_{k.group(1)}_w{k.group(2)}"
+            sw_ms[name] = sw_ms.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+            sw_n[name] = sw_n.get(name, 0) + 1
+    total = sum(sw_ms.values())
+    say("stream_profile", wall_ms=f"{wall_ms:.1f}", device_events=len(device),
+        busy_ms=f"{busy_ms:.1f}", busy_share=f"{busy_ms / wall_ms:.4f}",
+        sw_ms=json.dumps({k: round(v, 3) for k, v in sorted(sw_ms.items())}, separators=(",", ":")),
+        sw_launches=json.dumps(dict(sorted(sw_n.items())), separators=(",", ":")),
+        sw_ms_total=f"{total:.3f}", sw_share_of_wall=f"{total / wall_ms:.4f}",
+        sw_share_of_busy=f"{total / busy_ms:.4f}")
+    check(sw_n.get("banded_sw_pairstate_w64", 0) > 0 and sw_n.get("banded_sw_packed_w64", 0) > 0,
+          f"stream_profile: the profile shows SW launches {sw_n}")
+
+
 def stream(dev, seqs, built, clf, tmp: Path) -> dict:
     """[stream]: run_once over 8 FASTQ samples on the card (the pipelined
     path), then the tables.  Returns what [stream_agree] compares."""
@@ -600,7 +797,7 @@ def stream(dev, seqs, built, clf, tmp: Path) -> dict:
     state = AbundanceState.load(out, built.meta.n_accessions)
     export_tables(state, built.meta, out)
     dt = time.perf_counter() - t0
-    launches = dict(_native.LAUNCHES)
+    launches, shapes = dict(_native.LAUNCHES), launch_shapes()
     # ---- end of the streaming path ----
     check_consumed(q, reports, STREAM_SAMPLES, "stream")
     check(sum(r.n_reads for r in reports) == n_reads, "stream: read count")
@@ -626,7 +823,8 @@ def stream(dev, seqs, built, clf, tmp: Path) -> dict:
         accuracy=f"{acc:.4f}", **{f"{k}_share": f"{v / n_reads:.4f}" for k, v in n.items()},
         **{f"{k}_s": f"{v:.3f}" for k, v in stage.items()},
         peak_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.0f}",
-        launches=json.dumps(launches, separators=(",", ":")))
+        launches=json.dumps(launches, separators=(",", ":")),
+        launch_shapes=json.dumps(shapes, separators=(",", ":")))
     check(acc >= MIN_ACCURACY, f"stream accuracy {acc:.4f} < {MIN_ACCURACY}")
 
     # the rescue tier pick costs one host sync per shard and batch
@@ -785,7 +983,7 @@ def cli(dev, seqs, tmp: Path) -> dict:
     _native.reset_launch_counts()
     rc, wall = run_cli([*common, "-q", str(q), "-o", str(out), *groups, "--not_auto_open_plot"],
                        log)
-    launches = dict(_native.LAUNCHES)
+    launches, shapes = dict(_native.LAUNCHES), launch_shapes()
     # ---- end of the CLI's analysis path ----
     check(rc == 0, f"cli analysis run exited {rc}")
     for f in (DATAFRAME_FILENAME, RAW_DATAFRAME_FILENAME, barplot.BARPLOT_FILENAME,
@@ -817,7 +1015,8 @@ def cli(dev, seqs, tmp: Path) -> dict:
         accuracy=f"{acc:.4f}", focus_mapped=focus_mapped, cached_index_loaded=True,
         **{f"{k}_s": f"{v:.3f}" for k, v in split.items()},
         other_s=f"{wall - sum(split.values()):.3f}",
-        launches=json.dumps(launches, separators=(",", ":")))
+        launches=json.dumps(launches, separators=(",", ":")),
+        launch_shapes=json.dumps(shapes, separators=(",", ":")))
     check(acc >= MIN_ACCURACY, f"cli accuracy {acc:.4f} < {MIN_ACCURACY}")
     return dict(root=root, q=q, out=out, log=log, inputs=inputs)
 
@@ -875,12 +1074,7 @@ def main() -> None:
         host_cpu=repr(host_cpu()), host_cores=os.cpu_count(),
         torch_threads=torch.get_num_threads())
 
-    t0 = time.perf_counter()
-    _native.load()
-    say("build", seconds=f"{time.perf_counter() - t0:.2f}", library=_native.library_path().name,
-        fastq_parser=native.library_path().name if native.available() else "unavailable")
-    check(native.available(), "the native FASTQ parser did not build")
-
+    build_all()
     timings = compare_kernels(dev)
     launches, zymo, zymo_built, zymo_build_s = single_shard(dev)
     build_agree(dev, zymo, zymo_built, zymo_build_s)
@@ -892,6 +1086,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         first = stream(dev, seqs, built, clf, Path(tmp))
         stream_agree(dev, seqs, built, clf, Path(tmp), first)
+        stream_profile(dev, built, clf, Path(tmp), first)
     del seqs, built, clf, first
     torch.cuda.empty_cache()
 
@@ -902,7 +1097,9 @@ def main() -> None:
     table = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
          "launches": launches[name], "max_abs_err": timings[name]["max_abs_err"],
-         "ms": timings[name]["ms"], "plain_ms": timings[name]["plain_ms"]}
+         "ms": timings[name]["ms"], "plain_ms": timings[name]["plain_ms"],
+         "bound_ms": timings[name]["bound_ms"], "bound_by": timings[name]["bound_by"],
+         "library_ms": None}
         for name, replaces in KERNELS.items()
     ]
     print(json.dumps({"kernels": table}))

@@ -9,11 +9,17 @@ installed package) to ``monica_tpu_torch`` under the user's cache
 directory.  A build failure raises: nothing falls back to the plain
 PyTorch version.
 
+The build passes ``-Xptxas -v``; what ptxas printed (each kernel's
+registers, shared memory and spills) is kept beside the library, with
+the suffix ``.log``.
+
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream,
 raises when the C entry returns a CUDA error, and adds one to its entry
 in :data:`LAUNCHES` per launch (keyed by kernel and band width), so a
-run can show which kernels it went through.
+run can show which kernels it went through, and to
+:data:`LAUNCH_SHAPES` (keyed by kernel, B and L), so it can show at
+which shapes.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from monica_tpu_torch.ops.extend import ExtendParams, _gap_reach, packed_mbits
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 KERNEL_WIDTHS = (64, 128)  # band widths W the kernels are instantiated for
 
@@ -39,6 +45,8 @@ KERNEL_WIDTHS = (64, 128)  # band widths W the kernels are instantiated for
 # reset_launch_counts()
 LAUNCHES = {f"banded_sw_{kind}_w{w}": 0 for kind in ("packed", "pairstate")
             for w in KERNEL_WIDTHS}
+# launches per (kernel instance, B, L) since the last reset_launch_counts()
+LAUNCH_SHAPES: dict[tuple[str, int, int], int] = {}
 
 _lib = None
 
@@ -89,6 +97,7 @@ def build() -> Path:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
 
@@ -110,6 +119,7 @@ def load() -> ctypes.CDLL:
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
 
 
 def banded_sw_cuda(q: torch.Tensor, refwin: torch.Tensor, lengths: torch.Tensor,
@@ -135,6 +145,8 @@ def banded_sw_cuda(q: torch.Tensor, refwin: torch.Tensor, lengths: torch.Tensor,
         )
     if not (q.is_contiguous() and refwin.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("banded_sw_cuda needs contiguous tensors")
+    if p.gap < 0:
+        raise ValueError("banded_sw_cuda takes a gap penalty >= 0")
     score = torch.empty(B, dtype=torch.int32, device=q.device)
     mlen = torch.empty(B, dtype=torch.int32, device=q.device)
     if B == 0:
@@ -156,4 +168,5 @@ def banded_sw_cuda(q: torch.Tensor, refwin: torch.Tensor, lengths: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    LAUNCH_SHAPES[name, B, L] = LAUNCH_SHAPES.get((name, B, L), 0) + 1
     return score, mlen
