@@ -34,12 +34,26 @@ on the card at the main path's shapes, with its time beside its bound
   (``[stream_agree]``); one more ``run_once`` of the same samples under
   ``torch.profiler`` gives the device's busy share over the pass and the
   SW kernels' device time and share of it (``[stream_profile]``);
+* the multi-device step on meshes of the one card (``cuda:0`` repeated
+  in every cell): a (data=1, index=3) mesh of the gut index held equal to
+  the single-device Classifier on the stream's batches and its
+  ``run_once`` tables byte-equal to ``[stream]``'s, a (2, 3) mesh's
+  accuracy on the stream, both beside the single-device rate
+  (``[mesh]``); the (2, 3) mesh on the card held equal to the same mesh
+  on ``cpu`` x 6 (``[mesh_agree]``); two ``torch.distributed`` worker
+  processes on the card (this script with ``--multiproc-worker``, backend
+  ``gloo``, as NCCL refuses two ranks on one device), first with the data
+  axis across them and different sample counts, then with the index axis
+  across them, their tables held equal to the single-process run
+  (``[multiproc]``);
 * the product path — the CLI (``python -m monica_tpu_torch.cli``) on an
   offline world of the 10 Zymo genomes (taxdump, assembly summary,
   ``.fna.gz`` files) and 4 FASTQ samples of 4,000 reads: ``build_index``,
   then the analysis run on the cached index with its focus second pass
   (``[cli]``); the library run on the saved artifact and ``plot_only``
-  held byte-equal to the CLI's tables and HTML (``[cli_agree]``).
+  held byte-equal to the CLI's tables and HTML (``[cli_agree]``);
+* the accuracy harness, ``python -m monica_tpu_torch.concordance --device
+  cuda`` at its default sizes, every row and the gate (``[concordance]``).
 
 Every phase prints one line; any failure raises, so the exit code is
 nonzero and the final line is missing.  The last two lines are the
@@ -51,12 +65,14 @@ It needs CUDA: without a card it exits nonzero before printing a result.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import gzip
 import json
 import os
 import platform
 import re
 import runpy
+import socket
 import subprocess
 import sys
 import tempfile
@@ -85,6 +101,8 @@ from monica_tpu_torch.io.encode import pack_codes_2bit
 from monica_tpu_torch.ops import _native
 from monica_tpu_torch.ops import extend as ex
 from monica_tpu_torch.ops import lookup as lk
+from monica_tpu_torch.parallel import dist
+from monica_tpu_torch.parallel import mesh as pm
 from monica_tpu_torch.plots import barplot
 from monica_tpu_torch.stats.abundance import (DATAFRAME_FILENAME, RAW_DATAFRAME_FILENAME,
                                               AbundanceState, export_tables, read_dataframe)
@@ -114,6 +132,11 @@ ZYMO_SPECIES = ["Pseudomonas aeruginosa", "Escherichia coli", "Salmonella enteri
 FOCUS_SPECIES = "Escherichia coli"
 CLI_SAMPLES = 4
 CLI_READS = 4000
+# the meshes on the one card: (n_data, n_index)
+MESH_EQUAL = (1, 3)  # held equal to the single-device Classifier
+MESH_SPLIT = (2, 3)  # the batch split over two data rows
+MESH_AGREE_READS = (96, 32)  # [mesh_agree]'s CPU side: a 1 kb and a 4 kb batch
+MULTIPROC_WAIT_S = 420  # both workers of one [multiproc] layout, together
 SOURCE = "monica_tpu_torch/ops/csrc/banded_sw.cu"
 # the card's peak rates, for a kernel's bound: HBM bytes/s from NVIDIA's
 # H100 SXM data sheet; int32 instructions/s, which the data sheet does not
@@ -838,7 +861,9 @@ def stream(dev, seqs, built, clf, tmp: Path) -> dict:
         classify_and_fetch_ms_median=f"{float(np.median(reps_ms)):.3f}",
         reps_ms=[f"{m:.3f}" for m in reps_ms], accuracy=f"{accuracy(hits, labels):.4f}", **busy_share(clf, codes[None], lengths))
     return dict(inputs=inputs, routed=routed(q), state=dict(state.samples),
-                reports=report_rows(reports), launches=launches)
+                reports=report_rows(reports), launches=launches, truth=truth,
+                tables={f: (out / f).read_bytes()
+                        for f in (DATAFRAME_FILENAME, RAW_DATAFRAME_FILENAME)})
 
 
 def stream_agree(dev, seqs, built, clf, tmp: Path, first: dict) -> None:
@@ -900,6 +925,235 @@ def stream_agree(dev, seqs, built, clf, tmp: Path, first: dict) -> None:
         card_run_s=f"{secs['card']:.2f}")
 
 
+def mapped_correct(q: Path, names, truth: dict) -> int:
+    """Reads routed to mapped/ under their true tax unit."""
+    return sum(truth[rec.seq] == rec.id for name in names
+               for rec in seqio.read_fastq(q / rt.MAPPED_DIR / name))
+
+
+def stream_batches(clf, tmp: Path, first: dict) -> list:
+    """The [stream] samples' device batches, as run_once makes them for
+    ``clf`` (padded to its row multiple)."""
+    src = tmp / "batch_src"
+    src.mkdir(parents=True, exist_ok=True)
+    out = []
+    for name, data in first["inputs"].items():
+        (src / name).write_bytes(data)
+        out += rt._prepare_sample(clf, src / name, enc.DEFAULT_BUCKETS, STREAM_BATCH,
+                                  Metrics(verbose=False)).batches
+    return out
+
+
+def timed_batches(clf, batches) -> tuple[list, float]:
+    """(fetched results, wall seconds between two device syncs)."""
+    outs, ms = synced_ms(lambda: [clf.fetch(*clf.classify(b.codes, b.lengths)) for b in batches])
+    return outs, ms / 1e3
+
+
+def mesh_run(dev, seqs, built, clf, tmp: Path, first: dict, shape) -> None:
+    """One [mesh] line: the gut index on an (n_data, n_index) mesh of the
+    card, the stream's batches through it and through the single-device
+    Classifier (timed in turn, results compared), then run_once over the
+    stream's samples on the mesh, with the SW launches of the mesh's
+    batches and run_once, its host syncs a bench batch and its peak."""
+    nd, ni = shape
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    mclf, stack_s = synced_ms(lambda: rt.Classifier(built, mesh=pm.make_mesh(
+        nd, ni, devices=[dev] * (nd * ni))))
+    index_mb = (torch.cuda.memory_allocated() - before) / 2**20
+    mult = mclf.batch_row_multiple()
+    batches = [enc.pad_rows(b, mult) for b in stream_batches(clf, tmp / f"m{nd}x{ni}", first)]
+    n_reads = STREAM_SAMPLES * STREAM_READS
+    mclf.fetch(*mclf.classify(batches[0].codes, batches[0].lengths))  # warm-up
+    single, single_s = timed_batches(clf, batches)
+
+    # ---- the mesh path: launch counts cover exactly this stretch ----
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launch_counts()
+    outs, mesh_s = timed_batches(mclf, batches)
+    q, out = tmp / f"mesh{nd}x{ni}_query", tmp / f"mesh{nd}x{ni}_out"
+    q.mkdir()
+    for name, data in first["inputs"].items():
+        (q / name).write_bytes(data)
+    reports, run_ms = synced_ms(lambda: rt.run_once(mclf, q, out, max_batch=STREAM_BATCH))
+    launches, shapes = dict(_native.LAUNCHES), launch_shapes()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    # ---- end of the mesh path ----
+    check_consumed(q, reports, STREAM_SAMPLES, f"mesh {nd}x{ni}")
+    for name in ("banded_sw_packed_w64", "banded_sw_pairstate_w64"):
+        check(launches[name] > 0, f"mesh {nd}x{ni}: {name} never launched")
+    differ = sum(int((a[0] != b[0]).sum() + (a[1] != b[1]).sum()) for a, b in zip(outs, single))
+    acc = mapped_correct(q, first["inputs"], first["truth"]) / n_reads
+    state = AbundanceState.load(out, built.meta.n_accessions)
+    export_tables(state, built.meta, out)
+    codes, _ = bench_reads(seqs, np.random.default_rng(SEED + 2), BATCH, READ_LEN, SUB_RATE)
+    syncs = host_syncs(mclf, codes, np.full(BATCH, READ_LEN, np.int32))
+    if shape == MESH_EQUAL:
+        for a, b in zip(outs, single):
+            same(a, b, f"mesh {nd}x{ni} vs single device")
+        check(routed(q) == first["routed"], f"mesh {nd}x{ni}: routed bytes differ from [stream]")
+        same_state(dict(state.samples), first["state"], f"mesh {nd}x{ni} vs [stream]")
+        for f, data in first["tables"].items():
+            check((out / f).read_bytes() == data, f"mesh {nd}x{ni}: {f} differs from [stream]'s")
+    check(acc >= MIN_ACCURACY, f"mesh {nd}x{ni}: accuracy {acc:.4f} < {MIN_ACCURACY}")
+    say("mesh", data=nd, index=ni, devices=f"cuda:0x{nd * ni}",
+        shards_per_rank=[mclf.index[(0, i)][0].mz_rows.shape[0] for i in range(ni)],
+        stack_s=f"{stack_s / 1e3:.2f}", index_mb=f"{index_mb:.0f}", batches=len(batches),
+        reads=n_reads, mesh_reads_per_s=f"{n_reads / mesh_s:.1f}",
+        single_reads_per_s=f"{n_reads / single_s:.1f}", mesh_s=f"{mesh_s:.3f}",
+        single_s=f"{single_s:.3f}", status_acc_differ_vs_single=differ,
+        run_once_s=f"{run_ms / 1e3:.3f}", run_once_reads_per_s=f"{n_reads / run_ms * 1e3:.1f}",
+        accuracy=f"{acc:.4f}", equal_to_single=shape == MESH_EQUAL or differ == 0,
+        host_syncs_per_batch=len(syncs), peak_mb=f"{peak_mb:.0f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        launch_shapes=json.dumps(shapes, separators=(",", ":")))
+    del mclf
+    torch.cuda.empty_cache()
+
+
+def mesh_agree(dev, seqs, built) -> None:
+    """[mesh_agree]: the (2, 3) mesh on the card against the same mesh on
+    cpu x 6 (the plain SW), on a 1 kb batch at high error (rescues) and
+    a 4 kb batch: status, acc_id, mlen and counts equal."""
+    rng = np.random.default_rng(SEED + 7)
+    n1, n4 = MESH_AGREE_READS
+    cases = [sim_batch(seqs, rng, n1, 800, 1024, (0.10, 0.04, 0.04), 1024)[:2],
+             sim_batch(seqs, rng, n4, 2000, 4000, (0.08, 0.04, 0.04), 4096)[:2]]
+    card = rt.Classifier(built, mesh=pm.make_mesh(*MESH_SPLIT, devices=[dev] * 6))
+    t0 = time.perf_counter()
+    cpu = rt.Classifier(built, mesh=pm.make_mesh(*MESH_SPLIT, devices=["cpu"] * 6))
+    before = _native.LAUNCHES["banded_sw_packed_w64"]
+    for codes, lengths in cases:
+        same(cpu.fetch(*cpu.classify(codes, lengths)), card.fetch(*card.classify(codes, lengths)),
+             f"mesh_agree {codes.shape}")
+    check(_native.LAUNCHES["banded_sw_packed_w64"] > before, "mesh_agree: the card ran no SW")
+    say("mesh_agree", data=MESH_SPLIT[0], index=MESH_SPLIT[1], batches=[list(c.shape) for c, _ in cases],
+        cpu_vs_card=True, cpu_s=f"{time.perf_counter() - t0:.1f}")
+    del card, cpu
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multiproc_worker(layout: str, rank: str, world: str, port: str, wdir: str) -> None:
+    """One process of [multiproc] (``chip_smoke.py --multiproc-worker``):
+    the gut index built on the card, a mesh of ``layout`` ("data": (2, 3),
+    the data axis across the processes, 3 cells each; "index": (1, 2),
+    the index axis across them, 1 cell each), run_once over its own query
+    folder; its time and launches go to ``worker<rank>.json``."""
+    rank, world, wdir = int(rank), int(world), Path(wdir)
+    dev = torch.device("cuda")
+    dist.multihost_init("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                        rank=rank, timeout=datetime.timedelta(seconds=MULTIPROC_WAIT_S))
+    built = build_index_from_arrays(gut_community(np.random.default_rng(SEED)),
+                                    n_shards=GUT_SHARDS, device=dev)
+    shape, cells = (MESH_SPLIT, MESH_SPLIT[1]) if layout == "data" else ((1, 2), 1)
+    mesh = pm.make_mesh(*shape, devices=[dev] * cells)
+    clf = rt.Classifier(built, mesh=mesh)
+    _native.reset_launch_counts()
+    reports, ms = synced_ms(lambda: rt.run_once(clf, wdir / f"q{rank}", wdir / f"o{rank}",
+                                                max_batch=STREAM_BATCH))
+    (wdir / f"worker{rank}.json").write_text(json.dumps(dict(
+        seconds=ms / 1e3, reads=sum(r.n_reads for r in reports), samples=len(reports),
+        launches=dict(_native.LAUNCHES), owners=mesh.owners, local_rows=mesh.local_rows(),
+        cross_process_rows=[d for d, g in enumerate(mesh.row_groups) if g is not None])))
+    dist.shutdown()
+
+
+def multiproc(dev, built, clf, tmp: Path, first: dict) -> None:
+    """[multiproc]: two worker processes on the card, backend gloo (named,
+    since NCCL refuses two ranks on one device).  Layout "data": 3 and 2
+    of the stream's samples, so the lockstep filler runs; layout "index":
+    the same 2 samples in both.  Each process's tables and routed files
+    must equal the [stream] run's for its samples (the union of the
+    per-process tables is the single-process result), and both workers
+    must exit 0 within MULTIPROC_WAIT_S."""
+    names = sorted(first["inputs"])
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    for layout, split in (("data", {0: names[:3], 1: names[3:5]}),
+                          ("index", {0: names[5:7], 1: names[5:7]})):
+        wdir = tmp / f"mp_{layout}"
+        for rank, ns in split.items():
+            (wdir / f"q{rank}").mkdir(parents=True)
+            for n in ns:
+                (wdir / f"q{rank}" / n).write_bytes(first["inputs"][n])
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--multiproc-worker", layout, str(rank), "2", str(port),
+                                   str(wdir)], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(t0 + MULTIPROC_WAIT_S - time.perf_counter(),
+                                                      1))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                print(log[-4000:], file=sys.stderr)
+            check(p.returncode == 0, f"multiproc {layout}: a worker exited {p.returncode}")
+        work = [json.loads((wdir / f"worker{r}.json").read_text()) for r in (0, 1)]
+        for rank, ns in split.items():
+            q, state = wdir / f"q{rank}", AbundanceState.load(wdir / f"o{rank}",
+                                                                built.meta.n_accessions)
+            check(set(state.samples) == {seqio.sample_name(n) for n in ns},
+                  f"multiproc {layout}: process {rank} samples {sorted(state.samples)}")
+            same_state(dict(state.samples), {k: first["state"][k] for k in state.samples},
+                       f"multiproc {layout} process {rank} vs [stream]")
+            mine = routed(q)
+            check(mine == {k: v for k, v in first["routed"].items() if k.split("/")[1] in ns},
+                  f"multiproc {layout}: process {rank}'s routed bytes differ from [stream]")
+            check(work[rank]["launches"]["banded_sw_packed_w64"] > 0,
+                  f"multiproc {layout}: process {rank} ran no SW")
+        # the single-process rate on the same samples
+        q = wdir / "single_query"
+        q.mkdir()
+        union = sorted({n for ns in split.values() for n in ns})
+        for n in union:
+            (q / n).write_bytes(first["inputs"][n])
+        _, single_ms = synced_ms(lambda: rt.run_once(clf, q, wdir / "single_out",
+                                                     max_batch=STREAM_BATCH))
+        say("multiproc", layout=layout, backend="gloo", processes=2,
+            mesh=f"{work[0]['owners']}", cross_process_rows=work[0]["cross_process_rows"],
+            samples=[w["samples"] for w in work],
+            worker_reads_per_s=[f"{w['reads'] / w['seconds']:.1f}" for w in work],
+            worker_run_once_s=[f"{w['seconds']:.3f}" for w in work],
+            single_process_reads_per_s=f"{len(union) * STREAM_READS / single_ms * 1e3:.1f}",
+            single_process_s=f"{single_ms / 1e3:.3f}", wall_s=f"{wall:.1f}",
+            tables_equal_single_process=True,
+            launches=json.dumps([w["launches"] for w in work], separators=(",", ":")))
+
+
+def concordance_phase(tmp: Path) -> None:
+    """[concordance]: ``python -m monica_tpu_torch.concordance --device
+    cuda`` at its default sizes (in this process, as its __main__), every
+    row printed; the gates must pass."""
+    art = tmp / "concordance.json"
+    _native.reset_launch_counts()
+    rc, wall = run_cli(["--device", "cuda", "--out", str(art)], tmp / "concordance.log",
+                       module="monica_tpu_torch.concordance")
+    out = json.loads(art.read_text())
+    for r in out["rows"] + out["strain_rows"]:
+        say("concordance", **{k: json.dumps(v, separators=(",", ":")) if isinstance(v, (list, tuple))
+                              else v for k, v in r.items()})
+    say("concordance", verdict=repr(out["verdict"]), worst_gated_accuracy=out["worst_gated_accuracy"],
+        r9_old_gate=out["r9_old_gate"]["pass"], strain_gate=out["strain_gate"],
+        exit_code=rc, wall_s=f"{wall:.1f}",
+        launches=json.dumps(dict(_native.LAUNCHES), separators=(",", ":")))
+    check(rc == 0 and out["verdict"] == "PASS" and out["worst_gated_accuracy"] >= MIN_ACCURACY,
+          f"concordance: exit {rc}, verdict {out['verdict']}")
+
+
 def write_world(seqs, tmp: Path) -> list[str]:
     """An offline NCBI for the 10 Zymo genomes: a taxdump (Bacteria and
     Eukaryota, a genus and a species node per genome), one assembly
@@ -932,16 +1186,16 @@ def write_world(seqs, tmp: Path) -> list[str]:
             "--offline_genomes", str(gdir)]
 
 
-def run_cli(argv: list[str], log: Path) -> tuple[int, float]:
-    """Run ``python -m monica_tpu_torch.cli <argv>`` in this process (the
-    module run as __main__, as the interpreter runs it, so the kernel
-    launch counters see its launches), its stdout appended to ``log``.
-    Returns (exit code, wall seconds)."""
-    argv0, sys.argv = sys.argv, ["monica_tpu_torch.cli", *argv]
+def run_cli(argv: list[str], log: Path, module: str = "monica_tpu_torch.cli") -> tuple[int, float]:
+    """Run ``python -m <module> <argv>`` (the CLI by default) in this
+    process (the module run as __main__, as the interpreter runs it, so
+    the kernel launch counters see its launches), its stdout appended to
+    ``log``.  Returns (exit code, wall seconds)."""
+    argv0, sys.argv = sys.argv, [module, *argv]
     t0 = time.perf_counter()
     try:
         with open(log, "a") as fh, contextlib.redirect_stdout(fh):
-            runpy.run_module("monica_tpu_torch.cli", run_name="__main__", alter_sys=True)
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
         rc = 0
     except SystemExit as e:
         rc = e.code if isinstance(e.code, int) else int(e.code is not None)
@@ -1065,6 +1319,8 @@ def cli_agree(dev, tmp: Path, run: dict) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
+    if sys.argv[1:2] == ["--multiproc-worker"]:
+        return multiproc_worker(*sys.argv[2:])
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -1087,12 +1343,17 @@ def main() -> None:
         first = stream(dev, seqs, built, clf, Path(tmp))
         stream_agree(dev, seqs, built, clf, Path(tmp), first)
         stream_profile(dev, built, clf, Path(tmp), first)
+        for shape in (MESH_EQUAL, MESH_SPLIT):
+            mesh_run(dev, seqs, built, clf, Path(tmp), first, shape)
+        mesh_agree(dev, seqs, built)
+        multiproc(dev, built, clf, Path(tmp), first)
     del seqs, built, clf, first
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         run = cli(dev, zymo, Path(tmp))
         cli_agree(dev, Path(tmp), run)
+        concordance_phase(Path(tmp))
 
     table = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,

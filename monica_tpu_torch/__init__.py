@@ -20,15 +20,17 @@ Conventions:
   (``ops/csrc/banded_sw.cu``) with a plain PyTorch version beside it;
   a CPU tensor takes the plain version, a CUDA tensor the kernel.
 
-Ported so far: the classify path (sketch -> lookup -> chain -> rescue
-extension -> finalize, or the cross-shard merge of a multi-shard index
--> count), the index build (on the host, or on the card for a CUDA
-device), the ``Classifier``, the single-process streaming runtime
-(``run_once`` / ``watch``: a folder of FASTQ samples to routed reads and
-abundance tables), and the product path around it: index artifacts,
-the offline data layer (``data/``), the barplot, ``orchestrate`` and the
-CLI (``python -m monica_tpu_torch.cli``).  See ROADMAP.md for what comes
-next.
+The port covers all of the JAX package: the classify path (sketch ->
+lookup -> chain -> rescue extension -> finalize, or the cross-shard
+merge of a multi-shard index -> count), the index build (on the host, or
+on the card for a CUDA device), the ``Classifier`` on one device or a
+device mesh (``parallel/``), the streaming runtime (``run_once`` /
+``watch``: a folder of FASTQ samples to routed reads and abundance
+tables, in lockstep across ``torch.distributed`` processes), the product
+path around it (index artifacts, the offline data layer ``data/``, the
+barplot, ``orchestrate`` and the CLI, ``python -m monica_tpu_torch.cli``)
+and the accuracy harnesses (``evaluation``, ``concordance``,
+``parity``).  See ROADMAP.md for what comes next.
 """
 
 __version__ = "0.1.0"

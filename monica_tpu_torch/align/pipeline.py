@@ -10,8 +10,8 @@ A read batch moves sketch -> seed lookup -> diagonal vote chaining ->
 budgeted banded-SW rescue -> finalize (one shard) or cross-shard merge
 -> per-accession counts.  PyTorch runs eagerly, so there is no jit;
 every tensor lives on the device of the index it is classified against.
-The mesh stacking (``stack_mesh_shard_groups``) belongs to the
-multi-device step and is not ported yet.
+``stack_mesh_shard_groups`` deals the shards over the index axis of a
+device mesh (``monica_tpu_torch.parallel``).
 """
 
 from __future__ import annotations
@@ -70,18 +70,22 @@ def device_shard(shard: IndexShard, device) -> tuple[DeviceIndexShard, int]:
     return index_tensors(rows, shard.pos_accession_id, shard.ref_codes, device), tag_bits
 
 
-def stack_device_shards(shards: list[IndexShard], device, tag_bits: int) -> DeviceIndexShard:
+def stack_device_shards(shards: list[IndexShard], device, tag_bits: int,
+                        dims_of: list[IndexShard] | None = None) -> DeviceIndexShard:
     """Shards padded to common sizes and stacked on a leading axis:
     every shard gets the widest row-index width of the set and the tag
     width ``tag_bits`` (that of the largest packed reference of the
-    whole index, so one ClassifyParams covers every group).
+    whole index, so one ClassifyParams covers every group).  ``dims_of``
+    (default: ``shards``) is the set whose widest table and longest
+    reference fix the padded sizes.
     Table padding is all-zero rows (empty slots), ``pos_acc`` pads with
     0 and ``ref_codes`` with PAD (4).  Each shard is copied straight
     into the stacked device tensors, so the host never holds the stack."""
     if not shards:
         raise ValueError("cannot stack an empty shard list")
-    T = max(len(s.ref_codes) for s in shards)
-    rbits = max(lk.row_bits_for(s.n_minimizers) for s in shards)
+    dims_of = shards if dims_of is None else dims_of
+    T = max(len(s.ref_codes) for s in dims_of)
+    rbits = max(lk.row_bits_for(s.n_minimizers) for s in dims_of)
     S = len(shards)
     out = DeviceIndexShard(
         mz_rows=torch.empty((S, 1 << rbits, lk.ROW_SLOTS), dtype=torch.int32, device=device),
@@ -119,6 +123,58 @@ def stack_device_shard_groups(shards: list[IndexShard],
     groups = tuple(stack_device_shards(by_class[c], device, tag_bits)
                    for c in sorted(by_class))
     return groups, tag_bits
+
+
+def _empty_shard() -> IndexShard:
+    """A padding shard that can never produce a hit: an empty hash table
+    (all-zero rows, the empty-slot sentinel) over a 1-base reference.
+    It evens out the shard counts of the index ranks of a mesh."""
+    return IndexShard(
+        ref_codes=np.full(1, 4, np.uint8),
+        seq_starts=np.zeros(0, np.int64),
+        seq_lengths=np.zeros(0, np.int64),
+        seq_accession_id=np.zeros(0, np.int32),
+        mz_hash=np.zeros(0, np.uint32),
+        mz_pos=np.zeros(0, np.int32),
+        mz_strand=np.zeros(0, np.uint8),
+        pos_accession_id=np.zeros(1, np.uint16),
+    )
+
+
+def stack_mesh_shard_groups(
+    shards: list[IndexShard], n_index: int, devices,
+) -> tuple[tuple[tuple[DeviceIndexShard | None, ...], ...], int]:
+    """Any number of shards stacked for an index axis of ``n_index``
+    ranks, several shards a rank when there are more shards than ranks.
+    Per power-of-2 size class (ascending), the shards are dealt largest
+    first onto the rank with the fewest bases so far (LPT), each rank is
+    padded with inert ``_empty_shard``s to the class's most shards per
+    rank, and each rank's shards are stacked on ``devices[r]`` at the
+    sizes of the whole class, so rank r's stack equals rows
+    ``[r*S_c, (r+1)*S_c)`` of the JAX package's rank-major stack.  A rank
+    whose device is None is skipped (another process holds it).  Returns
+    (classes -> ranks -> stacked shards, the common tag width)."""
+    if not shards:
+        raise ValueError("cannot stack an empty shard list")
+    tag_bits = lk.tag_bits_for(max(len(s.ref_codes) for s in shards))
+    by_class: dict[int, list[IndexShard]] = {}
+    for s in shards:
+        by_class.setdefault(_size_class(len(s.ref_codes)), []).append(s)
+    groups = []
+    for c in sorted(by_class):
+        ranks: list[list[IndexShard]] = [[] for _ in range(n_index)]
+        loads = np.zeros(n_index, np.int64)
+        for s in sorted(by_class[c], key=lambda s: -len(s.ref_codes)):
+            r = int(np.argmin(loads))
+            ranks[r].append(s)
+            loads[r] += len(s.ref_codes)
+        s_c = max(len(r) for r in ranks)
+        ranks = [r + [_empty_shard() for _ in range(s_c - len(r))] for r in ranks]
+        every = [s for r in ranks for s in r]
+        groups.append(tuple(None if dev is None
+                            else stack_device_shards(rank, dev, tag_bits, dims_of=every)
+                            for rank, dev in zip(ranks, devices)))
+    return tuple(groups), tag_bits
 
 
 def stacked_nbytes(groups) -> int:
@@ -382,18 +438,32 @@ def classify_batch_grouped(groups: tuple[DeviceIndexShard, ...], codes: torch.Te
                            lengths: torch.Tensor, params: ClassifyParams, n_accessions: int,
                            count_mode: int = MODE_QUERY_LENGTH):
     """Multi-shard step over size-class groups (stack_device_shard_groups):
-    the sketch once, every shard of every group in turn on a slice of
-    its group's stacked tensors, hits stacked in group-then-shard order,
-    then merge_hits and the counts.  A single-shard index goes through
-    classify_batch instead."""
-    sk = sketch_batch(codes, lengths, params)
+    ``classify_groups``, then ``merge_and_count``.  A single-shard index
+    goes through classify_batch instead."""
+    return merge_and_count(classify_groups(groups, codes, lengths, params), lengths, params,
+                           n_accessions, count_mode)
+
+
+def classify_groups(groups: tuple[DeviceIndexShard, ...], codes: torch.Tensor,
+                    lengths: torch.Tensor, params: ClassifyParams, sketch=None) -> ShardHit:
+    """Every shard of every size-class group in turn on a slice of its
+    group's stacked tensors, with one sketch (``sketch``, else computed
+    here): the hits as one ShardHit of (S, B) fields in group-then-shard
+    order."""
+    sk = sketch_batch(codes, lengths, params) if sketch is None else sketch
     hits = [
         classify_shard(DeviceIndexShard(g.mz_rows[s], g.pos_acc[s], g.ref_codes[s]),
                        codes, lengths, params, sketch=sk)
         for g in groups for s in range(g.mz_rows.shape[0])
     ]
-    merged = ShardHit(*(torch.stack(f) for f in zip(*hits)))
-    result = merge_hits(merged, params.tie_rel_tol, params.vote_tie_sd)
+    return ShardHit(*(torch.stack(f) for f in zip(*hits)))
+
+
+def merge_and_count(hits: ShardHit, lengths: torch.Tensor, params: ClassifyParams,
+                    n_accessions: int, count_mode: int = MODE_QUERY_LENGTH):
+    """The (S, B) hits of a batch merged per read (``merge_hits``) and
+    counted: (ReadResult, (n_accessions,) counts)."""
+    result = merge_hits(hits, params.tie_rel_tol, params.vote_tie_sd)
     return result, count_reads(result, lengths, n_accessions, count_mode)
 
 

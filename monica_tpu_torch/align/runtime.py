@@ -1,6 +1,6 @@
-"""Classification runtime — counterpart of ``monica_tpu/align/runtime.py``
-on one device: the ``Classifier`` (single-shard or multi-shard index)
-and the single-process streaming runtime.
+"""Classification runtime — counterpart of ``monica_tpu/align/runtime.py``:
+the ``Classifier`` (a single-shard or multi-shard index on one device,
+or any shard count on a device mesh) and the streaming runtime.
 
 * scan the query folder for non-empty ``*.fastq`` samples, consume and
   DELETE each after processing, so re-invoking a pass is idempotent;
@@ -23,10 +23,12 @@ caller thread queued.  The rescue tier pick costs one device->host sync
 per shard and batch (see ``pipeline.classify_shard``), so dispatch is
 not fully asynchronous as it is in the JAX package.
 
-Not ported: the multi-host lockstep parts of the JAX runtime
-(``_is_multiprocess``, ``_sync_batch_schedule`` and the
-``sample_path=None`` filler sample) belong to the multi-device step,
-and ``Classifier(mesh=...)`` raises ``NotImplementedError``.
+With a mesh that spans processes (``parallel.dist.multihost_init``),
+every process runs its own query and output folders, and the processes
+dispatch in lockstep: they agree on each pass's sample count (a process
+with fewer runs inert filler samples) and on each sample's batch
+schedule (``_sync_batch_schedule``), since every hit gather of a row
+that spans processes is a collective.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ from monica_tpu_torch.index.build import BuiltIndex
 from monica_tpu_torch.io import encode as enc
 from monica_tpu_torch.io import native
 from monica_tpu_torch.io import seq as seqio
+from monica_tpu_torch.parallel import dist
+from monica_tpu_torch.parallel import mesh as pm
 from monica_tpu_torch.stats.abundance import AbundanceState
 from monica_tpu_torch.utils.metrics import Metrics
 
@@ -94,11 +98,14 @@ class RouteFolders:
 class Classifier:
     """Device-resident index + the classify step.
 
-    A one-shard index is classified unstacked (``classify_batch``); a
-    multi-shard index is stacked by size class
+    On one device (``device``): a one-shard index is classified unstacked
+    (``classify_batch``); a multi-shard index is stacked by size class
     (``stack_device_shard_groups``) and classified by
-    ``classify_batch_grouped``.  ``device`` is required: the index lives
-    there and every batch is classified there."""
+    ``classify_batch_grouped``.  On a mesh (``mesh``, a
+    :class:`parallel.mesh.Mesh`): any number of shards is dealt over the
+    index axis (``stack_mesh_shard_groups``) and each batch's rows over
+    the data axis (``parallel.dist.make_sharded_classifier``).  One of
+    the two is required; nothing picks a device."""
 
     def __init__(
         self,
@@ -106,22 +113,24 @@ class Classifier:
         params: pl.ClassifyParams = pl.ClassifyParams(),
         count_mode: str = "query_length",
         *,
-        device,
-        mesh=None,
+        device=None,
+        mesh: pm.Mesh | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device classification is not ported yet "
-                "(ROADMAP.md, modules to port: multi-device)"
-            )
-        self.device = torch.device(device)
+        if (device is None) == (mesh is None):
+            raise TypeError("Classifier takes a device or a mesh")
         self.meta = built.meta
         self.count_mode = pl.COUNT_MODES[count_mode]
+        self.mesh = mesh
         if self.count_mode == pl.MODE_MATCHING and params.extend:
             # 'matching' counts alignment mlen, so extension runs on
             # every read, not only on the rescue candidates
             params = params._replace(extend_mode="full")
-        if len(built.shards) == 1 and built.device:
+        # a mesh's results are fetched from the device of its first local row
+        self.device = (torch.device(device) if mesh is None
+                       else mesh.row_device(mesh.local_rows()[0]))
+        if mesh is not None:
+            self.index, tag_bits = pm.shard_index(mesh, built.shards)
+        elif len(built.shards) == 1 and built.device:
             # a one-shard build on the card: its hash table is used as it
             # is; only the per-position accession ids and the codes are
             # uploaded
@@ -137,20 +146,19 @@ class Classifier:
         )
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device.  On a card the copy is non_blocking
-        from pinned memory; PyTorch's pinned-memory allocator does not
-        reuse the staging block before the copy has run, so dropping it
-        here is safe."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        """Host array -> the Classifier's device (``mesh.upload``)."""
+        return pm.upload(arr, self.device)
 
     def classify(self, codes: np.ndarray, lengths: np.ndarray):
         """Classify one padded (B, L) uint8 batch; returns device
-        (ReadResult, counts).  Reads cross to the device 2-bit packed
-        (4 bases/byte) and are unpacked there."""
+        (ReadResult, counts), on a mesh ({row: ReadResult}, {row:
+        counts}) for this process's data rows.  Reads cross to the device
+        2-bit packed (4 bases/byte) and are unpacked there."""
         params = pl.params_for_bucket(self.params, codes.shape[1])
+        if self.mesh is not None:
+            step = dist.make_sharded_classifier(self.mesh, params, self.meta.n_accessions,
+                                                self.count_mode, self.index)
+            return step(pm.shard_reads(self.mesh, codes, lengths))
         step = (pl.classify_batch_packed if isinstance(self.index, pl.DeviceIndexShard)
                 else pl.classify_batch_grouped_packed)
         return step(
@@ -159,25 +167,38 @@ class Classifier:
             self.meta.n_accessions, self.count_mode,
         )
 
-    def fetch(self, res: pl.ReadResult, counts: torch.Tensor):
-        """Blocking device->host fetch in one transfer: (status, acc_id,
-        mlen) numpy int32 rows and the (n_accessions,) int64 counts."""
+    def fetch(self, res, counts):
+        """Blocking device->host fetch of one classified batch, for THIS
+        process's rows: (status, acc_id, mlen) numpy int32 rows and the
+        (n_accessions,) int64 counts of those rows, in one transfer."""
         return self.fetch_packed(self.dispatch_pack(res, counts))
 
     def _split_packed(self, arr: np.ndarray):
-        """(status, acc_id, mlen, counts) from a pl.pack_results array."""
-        c = arr[3:].reshape(-1)[: self.meta.n_accessions].astype(np.int64)
+        """(status, acc_id, mlen, counts) from a pl.pack_results array,
+        or from a mesh's (n_rows, 3 + R, b) stack of them (rows in data
+        order, their counts summed)."""
+        n_acc = self.meta.n_accessions
+        if arr.ndim == 3:
+            c = arr[:, 3:].reshape(arr.shape[0], -1)[:, :n_acc].sum(axis=0, dtype=np.int64)
+            return arr[:, 0].reshape(-1), arr[:, 1].reshape(-1), arr[:, 2].reshape(-1), c
+        c = arr[3:].reshape(-1)[:n_acc].astype(np.int64)
         return arr[0], arr[1], arr[2], c
 
-    def dispatch_pack(self, res, counts) -> torch.Tensor:
+    def dispatch_pack(self, res, counts):
         """Pack one batch's results into one int32 tensor on the device
-        (queued behind its batch, no sync)."""
-        return pl.pack_results(res, counts)
+        (queued behind its batch, no sync); a mesh's rows (this
+        process's) are packed each on its device and stacked on the
+        Classifier's."""
+        if self.mesh is None:
+            return pl.pack_results(res, counts)
+        return torch.stack([pl.pack_results(res[d], counts[d]).to(self.device)
+                            for d in sorted(res)])
 
-    def combine_packed(self, handles: list) -> torch.Tensor:
+    def combine_packed(self, handles: list) -> torch.Tensor | None:
         """One device-side concat of a whole sample's packed batches, so
-        the sample costs ONE device->host transfer."""
-        return pl.concat_packed(handles)
+        the sample costs ONE device->host transfer; None for no batches
+        (a lockstep filler whose slot every process left empty)."""
+        return pl.concat_packed(handles) if handles else None
 
     def fetch_packed(self, handle: torch.Tensor):
         """Blocking counterpart of dispatch_pack."""
@@ -195,6 +216,10 @@ class Classifier:
             o += n
         return out
 
+    def batch_row_multiple(self) -> int:
+        """Batches are padded to a multiple of the mesh's data axis."""
+        return 1 if self.mesh is None else self.mesh.shape[pm.DATA_AXIS]
+
 
 @dataclass
 class SampleReport:
@@ -205,6 +230,89 @@ class SampleReport:
     n_ambiguous: int = 0
     n_focus: int = 0
     seconds: float = 0.0
+
+
+# ---------------------------------------------------------------------------
+# multi-process lockstep
+# ---------------------------------------------------------------------------
+#
+# When the mesh spans processes, the hit gather of a row that spans them
+# is a collective: every process must dispatch the same sequence of batch
+# SHAPES or the run deadlocks.  Each process classifies its OWN sample
+# files (separate query folders, per-process output tables whose union is
+# the global result).  Shapes are agreed with one small all-gather per
+# sample: per bucket, the slot-wise maximum of the processes' batch row
+# counts, and every process pads its batches (with inert all-padding rows
+# and batches) to that common schedule.
+
+def _is_multiprocess(classifier: "Classifier") -> bool:
+    return classifier.mesh is not None and classifier.mesh.world_size > 1
+
+
+_MAX_SCHED_SLOTS = 512  # batches per sample in the all-gathered plan
+
+
+def _sync_batch_schedule(batches: list) -> list:
+    """Agree on a common dispatch schedule across processes and return
+    this process's padded and extended lockstep batch list.
+
+    Local plans are (bucket_len, rows) pairs; the global schedule takes,
+    per bucket, the slot-wise maximum over processes (each process orders
+    a bucket's batches by descending rows first, so maxima pair like with
+    like).  A process missing a slot contributes an all-padding batch
+    (length 0, idx -1), which the pipeline masks out."""
+    per: dict[int, list] = {}
+    for b in batches:
+        per.setdefault(b.bucket_len, []).append(b)
+    for v in per.values():
+        v.sort(key=len, reverse=True)
+
+    # one extra row carries this process's overflow count: a process whose
+    # sample needs more than _MAX_SCHED_SLOTS batches must NOT raise before
+    # the all-gather (its peers would hang in it); every process gathers
+    # the counts first and then raises the same error together
+    plan = np.zeros((_MAX_SCHED_SLOTS + 1, 2), np.int32)
+    i = 0
+    overflow = 0
+    for blen in sorted(per):
+        for b in per[blen]:
+            if i >= _MAX_SCHED_SLOTS:
+                overflow += 1
+                continue
+            plan[i] = (blen, len(b))
+            i += 1
+    plan[_MAX_SCHED_SLOTS] = (-1, overflow)
+    all_plans = dist.process_allgather(plan)
+    total_overflow = int(all_plans[:, _MAX_SCHED_SLOTS, 1].astype(np.int64).sum())
+    if total_overflow:
+        raise ValueError(
+            f"a sample needs >{_MAX_SCHED_SLOTS} device batches "
+            f"({total_overflow} over, across all processes); raise --max_batch"
+        )
+
+    sched: dict[int, list[int]] = {}
+    for p in range(all_plans.shape[0]):
+        per_p: dict[int, list[int]] = {}
+        for blen, rows in all_plans[p, :_MAX_SCHED_SLOTS]:
+            if blen > 0:
+                per_p.setdefault(int(blen), []).append(int(rows))
+        for blen, lst in per_p.items():
+            lst.sort(reverse=True)
+            cur = sched.setdefault(blen, [])
+            for k, r in enumerate(lst):
+                if k < len(cur):
+                    cur[k] = max(cur[k], r)
+                else:
+                    cur.append(r)
+
+    out = []
+    for blen in sorted(sched):
+        have = per.get(blen, [])
+        for k, rows in enumerate(sched[blen]):
+            b = have[k] if k < len(have) else enc.ReadBatch(
+                np.zeros((0, blen), np.uint8), np.zeros(0, np.int32), np.zeros(0, np.int32))
+            out.append(enc.pad_rows(b, target=rows))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -307,24 +415,32 @@ def process_sample(
     the consumed file.  run_once overlaps these stages across samples;
     this is their serial composition.  A sample above
     ``max_resident_bytes`` streams through ~``chunk_bytes`` chunks (the
-    native parser is needed for that), with identical results."""
+    native parser is needed for that), with identical results.
+
+    ``sample_path=None`` is the multi-process lockstep filler: a process
+    with fewer samples this pass still takes part in every collective
+    dispatch (all-padding batches), touching no files and no state.  A
+    mesh that spans processes parses whole files: the schedule is agreed
+    per sample, not per chunk."""
     metrics = metrics or Metrics(verbose=False)
     if max_resident_bytes is None:
         max_resident_bytes = MAX_RESIDENT_BYTES
     if chunk_bytes is None:
         chunk_bytes = CHUNK_BYTES
     t0 = time.perf_counter()
-    if _ingest_bytes(sample_path) > max_resident_bytes and native.available():
+    multiproc = _is_multiprocess(classifier)
+    if (sample_path is not None and not multiproc
+            and _ingest_bytes(sample_path) > max_resident_bytes and native.available()):
         return _process_sample_chunked(
             classifier, Path(sample_path), folders, state, focus_taxa, overnight,
             buckets, max_batch, delete, metrics, t0, chunk_bytes,
         )
-    prepared = _prepare_sample(sample_path, buckets, max_batch, metrics)
-    if not prepared.n_rows:
+    prepared = _prepare_sample(classifier, sample_path, buckets, max_batch, metrics)
+    if not prepared.n_rows and not multiproc:
         if delete:
             Path(sample_path).unlink(missing_ok=True)
         return prepared.rep
-    pending = _dispatch_sample(classifier, prepared, metrics)
+    pending = _dispatch_sample(classifier, prepared, metrics, multiproc)
     return _finish_sample(classifier, prepared, pending, folders, state,
                           focus_taxa=focus_taxa, overnight=overnight, delete=delete,
                           metrics=metrics, t0=t0)
@@ -341,10 +457,11 @@ def _process_sample_chunked(
     counts and the report equal the whole-file run's."""
     name = seqio.sample_name(sample_path)
     total = SampleReport(sample=name)
+    mult = classifier.batch_row_multiple()
     for view in native.iter_fastq_file_views(sample_path, chunk_bytes):
         sample = _NativeSample(view)
         with metrics.stage(f"encode:{name}"):
-            batches = sample.batches(buckets, max_batch)
+            batches = [enc.pad_rows(b, mult) for b in sample.batches(buckets, max_batch)]
         prepared = _PreparedSample(sample_path, name, sample, batches, SampleReport(sample=name))
         prepared.rep.n_reads = len(sample)
         pending = _dispatch_sample(classifier, prepared, metrics)
@@ -364,9 +481,10 @@ def _process_sample_chunked(
 
 @dataclass
 class _PreparedSample:
-    """Host stage 1 output: parsed and encoded, ready for dispatch."""
+    """Host stage 1 output: parsed and encoded, ready for dispatch
+    (``sample_path`` None for a lockstep filler)."""
 
-    sample_path: Path
+    sample_path: Path | None
     name: str
     sample: object
     batches: list
@@ -377,16 +495,22 @@ class _PreparedSample:
         return len(self.sample)
 
 
-def _prepare_sample(sample_path, buckets, max_batch, metrics) -> _PreparedSample:
-    """Parse + encode + bucketize one sample (the C parser releases the
-    GIL, so in run_once this overlaps other samples' device work)."""
+def _prepare_sample(classifier, sample_path, buckets, max_batch, metrics) -> _PreparedSample:
+    """Parse + encode + bucketize one sample, each batch padded to the
+    Classifier's row multiple (the C parser releases the GIL, so in
+    run_once this overlaps other samples' device work)."""
+    if sample_path is None:
+        return _PreparedSample(None, "<lockstep-filler>", _PySample([]), [],
+                               SampleReport(sample="<lockstep-filler>"))
     sample_path = Path(sample_path)
     name = seqio.sample_name(sample_path)
     rep = SampleReport(sample=name)
     with metrics.stage(f"parse:{name}"):
         sample = _load_sample(sample_path)
     rep.n_reads = len(sample)
-    batches = sample.batches(buckets, max_batch) if len(sample) else []
+    mult = classifier.batch_row_multiple()
+    batches = ([enc.pad_rows(b, mult) for b in sample.batches(buckets, max_batch)]
+               if len(sample) else [])
     return _PreparedSample(sample_path, name, sample, batches, rep)
 
 
@@ -396,17 +520,20 @@ class _Dispatched:
     whole sample's combined result tensor."""
 
     pending: list  # [(ReadBatch, packed result tensor)]
-    combined: torch.Tensor
+    combined: torch.Tensor | None  # None: no batches
 
 
-def _dispatch_sample(classifier, prepared: _PreparedSample, metrics: Metrics) -> _Dispatched:
+def _dispatch_sample(classifier, prepared: _PreparedSample, metrics: Metrics,
+                     multiproc: bool = False) -> _Dispatched:
     """Queue every batch on the device, pack each batch's results there
     and concatenate the sample's packed results, so the later fetch is
     one transfer per sample.  Timed as the ``dispatch:`` stage, which
-    holds the host syncs of the rescue tier picks."""
+    holds the host syncs of the rescue tier picks.  Across processes the
+    batches first follow the agreed lockstep schedule."""
+    batches = _sync_batch_schedule(prepared.batches) if multiproc else prepared.batches
     with metrics.stage(f"dispatch:{prepared.name}", items=prepared.n_rows):
         pending = [(b, classifier.dispatch_pack(*classifier.classify(b.codes, b.lengths)))
-                   for b in prepared.batches]
+                   for b in batches]
         return _Dispatched(pending, classifier.combine_packed([h for _, h in pending]))
 
 
@@ -444,7 +571,10 @@ def _finish_sample(
     chunked = rows_per_read > 1
     windows: dict[int, list[tuple[int, int, int, int]]] = {}
     with metrics.stage(f"classify:{name}", items=len(sample)):
-        fetched = classifier.split_combined(pending.combined, [h for _, h in pending.pending])
+        # one transfer for the whole sample
+        fetched = ([] if pending.combined is None
+                   else classifier.split_combined(pending.combined,
+                                                  [h for _, h in pending.pending]))
         for (b, _), (st_all, ac_all, ml_all, cb) in zip(pending.pending, fetched):
             keep = b.idx >= 0
             idxs = b.idx[keep]
@@ -485,6 +615,10 @@ def _finish_sample(
             status[i] = pl.AMBIGUOUS
         else:
             status[i] = pl.UNMAPPED
+
+    if sample_path is None:
+        rep.seconds = time.perf_counter() - t0
+        return rep  # filler: no files to route, nothing to accumulate
 
     if state_lock is not None:
         with state_lock:
@@ -542,21 +676,61 @@ def run_once(
 ) -> list[SampleReport]:
     """One pass: process every sample now in the query folder and
     persist the accumulator (also after a failure mid-pass: the counts
-    belong to inputs already consumed)."""
+    belong to inputs already consumed).
+
+    Across processes (a mesh that spans them): each process passes its
+    OWN query and output folders; the processes agree on the pass's
+    sample count (those with fewer run inert lockstep fillers), so every
+    collective dispatch lines up.  The per-process tables' union is the
+    global result."""
     query_folder = Path(query_folder)
     output_folder = Path(output_folder)
     output_folder.mkdir(parents=True, exist_ok=True)
-    samples = seqio.list_sample_files(query_folder)
+    samples: list = list(seqio.list_sample_files(query_folder))
+    multiproc = _is_multiprocess(classifier)
+    if multiproc:
+        n_all = dist.process_allgather(np.array([len(samples)], np.int32))
+        samples += [None] * (int(n_all.max()) - len(samples))
     if not samples:
         return []
     touch_sentinel(query_folder, S_GOING_TO_ALIGN)
     folders = RouteFolders.create(query_folder, with_focus=bool(focus_taxa))
     state = AbundanceState.load(output_folder, classifier.meta.n_accessions)
     try:
+        if multiproc:
+            return _run_lockstep(classifier, samples, folders, state, query_folder,
+                                 focus_taxa, overnight, delete, metrics, max_batch)
         return _run_once_samples(classifier, samples, folders, state, query_folder,
                                  focus_taxa, overnight, delete, metrics, max_batch)
     finally:
         state.save(output_folder)
+
+
+def _run_lockstep(classifier, samples, folders, state, query_folder,
+                  focus_taxa, overnight, delete, metrics, max_batch) -> list[SampleReport]:
+    """The samples one at a time, in lockstep with the other processes.
+    Only the stage before the collectives (parse and encode) may be
+    quarantined: an inert filler takes a failed sample's place, so every
+    process's collective sequence stays aligned.  A failure after
+    dispatch (routing I/O, a device error) is not recoverable per sample,
+    as the peers' collectives for the slot are already in flight: it
+    propagates, and the run dies loudly rather than deadlocking."""
+    reports: list[SampleReport] = []
+    mt = metrics or Metrics(verbose=False)
+    for s in samples:
+        try:
+            prepared = _prepare_sample(classifier, s, enc.DEFAULT_BUCKETS, max_batch, mt)
+        except Exception as e:
+            _quarantine_sample(query_folder, s, e)
+            prepared = _prepare_sample(classifier, None, enc.DEFAULT_BUCKETS, max_batch, mt)
+        t0 = time.perf_counter()
+        pending = _dispatch_sample(classifier, prepared, mt, True)
+        rep = _finish_sample(classifier, prepared, pending, folders, state,
+                             focus_taxa=focus_taxa, overnight=overnight, delete=delete,
+                             metrics=mt, t0=t0)
+        if prepared.sample_path is not None:
+            reports.append(rep)
+    return reports
 
 
 def _run_once_samples(classifier, samples, folders, state, query_folder,
@@ -611,7 +785,7 @@ def _run_pipelined(classifier, samples, folders, state, query_folder: Path, focu
     with ThreadPoolExecutor(max_workers=2) as parse_pool, \
             ThreadPoolExecutor(max_workers=2) as route_pool:
         parse_futs = [
-            parse_pool.submit(_prepare_sample, s, enc.DEFAULT_BUCKETS,
+            parse_pool.submit(_prepare_sample, classifier, s, enc.DEFAULT_BUCKETS,
                               max_batch, metrics)
             for s in samples[:PREFETCH]
         ]
@@ -633,7 +807,7 @@ def _run_pipelined(classifier, samples, folders, state, query_folder: Path, focu
             nxt = i + PREFETCH
             if nxt < len(samples):
                 parse_futs.append(parse_pool.submit(
-                    _prepare_sample, samples[nxt], enc.DEFAULT_BUCKETS,
+                    _prepare_sample, classifier, samples[nxt], enc.DEFAULT_BUCKETS,
                     max_batch, metrics))
             if prepared is None:
                 continue
@@ -670,15 +844,25 @@ def watch(
     """Real-time loop: run_once every ``poll_s`` seconds.
     ``on_batch(reports)`` runs after each non-empty pass (a table
     export, say).  Stops after ``max_idle_polls`` empty polls in a row
-    (None = run forever)."""
+    (None = run forever).
+
+    Across processes run_once is a collective whenever ANY process has
+    samples, so every process keeps calling it at the same cadence: a
+    pass counts as idle only if no process got samples, and all reach
+    ``max_idle_polls``, and exit, together."""
     all_reports: list[SampleReport] = []
+    multiproc = _is_multiprocess(classifier)
     idle = 0
     while True:
         reports = run_once(classifier, query_folder, output_folder, **kwargs)
+        any_got = bool(reports)
+        if multiproc:
+            any_got = bool(dist.process_allgather(np.array([any_got], np.int32)).max())
         if reports:
             all_reports.extend(reports)
             if on_batch is not None:
                 on_batch(reports)
+        if any_got:
             idle = 0
         else:
             idle += 1

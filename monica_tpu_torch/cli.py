@@ -8,10 +8,11 @@ taxa, the ``human_readable`` memory type and the offline transports
 
 One flag is new: ``--device`` (default ``cuda``), where every index
 build and classification runs.  Without a card, ``--device cuda``
-exits with an error; the CLI never moves a run to the CPU.
-``--multihost`` and a mesh of several devices raise
-``NotImplementedError`` until the multi-device step is ported, and
-there is no compilation cache to enable.
+exits with an error; the CLI never moves a run to the CPU.  ``--n_data``
+other than 1 classifies on a mesh of the visible cards, and
+``--multihost`` joins a ``torch.distributed`` process group first (NCCL
+with ``--device cuda``, gloo with ``--device cpu``); there is no
+compilation cache to enable.
 
     python -m monica_tpu_torch.cli --root R build_index -G "Escherichia coli" \\
         --taxdump T --offline_tables S S --offline_genomes D
@@ -84,9 +85,9 @@ def _common_parser() -> argparse.ArgumentParser:
                            "(default cuda; cpu runs the plain PyTorch versions)")
     comp.add_argument("-n", "--n_shards", type=int, default=1, help="index shards")
     comp.add_argument("--n_data", type=lambda v: -1 if v == "auto" else int(v), default=1,
-                      help="data-parallel axis size; more than one device is not "
-                           "ported yet, so only 1 (or a count that resolves to one "
-                           "device) runs")
+                      help="data-parallel mesh axis size: the run spans n_data × "
+                           "n_shards devices; 'auto' (or -1) uses every visible card; "
+                           "1 = single device")
     comp.add_argument("-im", "--indexing_memory", type=human_readable,
                       help="per-shard byte budget, e.g. 4G (alternative to -n)")
     comp.add_argument("-t", "--threads", type=int, default=3,
@@ -99,11 +100,18 @@ def _common_parser() -> argparse.ArgumentParser:
 
     mh = p.add_argument_group(
         "Multi-host parameters",
-        "R|accepted for parity with the JAX package's CLI; --multihost raises\n"
-        "until the multi-device step is ported.",
+        "R|torch.distributed wiring: run one monica_tpu_torch process per host\n"
+        "with --multihost; the ('data','index') mesh then spans every process's\n"
+        "cards.  Per-process contract: each process passes its OWN -q/-o\n"
+        "folders and classifies its own sample files (lockstep dispatch handles\n"
+        "shape agreement); the per-process output tables' union is the global\n"
+        "result.  The backend follows --device: nccl for cuda, gloo for cpu.\n"
+        "Without --coordinator the env:// variables (MASTER_ADDR, MASTER_PORT,\n"
+        "WORLD_SIZE, RANK) are read.",
     )
-    mh.add_argument("--multihost", action="store_true")
-    mh.add_argument("--coordinator", help="host:port of process 0")
+    mh.add_argument("--multihost", action="store_true",
+                    help="join a torch.distributed process group before building the mesh")
+    mh.add_argument("--coordinator", help="host:port of process 0 (omit for env://)")
     mh.add_argument("--num_processes", type=int)
     mh.add_argument("--process_id", type=int)
 
@@ -252,10 +260,17 @@ def main(argv=None) -> int:
     command = getattr(args, "command", None)
 
     if getattr(args, "multihost", False):
-        raise NotImplementedError(
-            "--multihost: multi-device classification is not ported yet "
-            "(ROADMAP.md, modules to port: multi-device)"
+        from monica_tpu_torch.parallel import dist
+
+        device = torch.device(_device(args.device))
+        dist.multihost_init(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method=f"tcp://{args.coordinator}" if args.coordinator else None,
+            world_size=args.num_processes, rank=args.process_id,
         )
+        n_local = torch.cuda.device_count() if device.type == "cuda" else 1
+        print(f"multihost: process {dist.process_index()}/{dist.process_count()}, "
+              f"{n_local} local of {n_local * dist.process_count()} devices")
 
     if command == "initialize":
         new_root = rootutil.initialize(args.monica_root_folder)

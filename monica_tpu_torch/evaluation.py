@@ -1,14 +1,100 @@
-"""Synthetic reference and read generators (host side, numpy) —
-counterparts of ``zymo_community`` and ``simulate_read_codes`` in
-``monica_tpu/evaluation.py`` and of the gut community ``bench.py --gut``
-draws, drawing the same values from the same generator, plus the batch
-draws and the FASTQ samples ``chip_smoke.py`` classifies, and the random
-ShardHit stacks on which the merge is held to the JAX package (tests)
-and the card to the CPU (``chip_smoke.py``)."""
+"""Accuracy harness and synthetic data (host side, numpy) — counterpart
+of ``monica_tpu/evaluation.py``: the mock community with conserved
+blocks and repeats, strain siblings, the Zymo community and the read
+simulator, drawing the same values from the same generator; ``evaluate``
+and ``strain_pair_eval``, which score simulated reads classified through
+the port's ``Classifier`` against their truth (``concordance.py`` drives
+them); the gut community ``bench.py --gut`` draws; and the batch draws,
+FASTQ samples and random ShardHit stacks that ``chip_smoke.py`` and the
+tests use.
+
+Every performance knob (minimizer scaling, seed slots, hits per seed)
+is validated against this harness before it changes a default.
+"""
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
+
+
+def mock_community(
+    rng: np.random.Generator,
+    n_genomes: int,
+    genome_len: int,
+    shared_blocks: int = 4,
+    shared_len: int = 2000,
+    tandem_repeats: int = 0,
+    dispersed_repeats: int = 0,
+) -> list[np.ndarray]:
+    """Random genomes with conserved blocks copied between neighbours (the
+    16S or mobile-element analog): classification must rely on the unique
+    remainder, and reads wholly inside a shared block are ambiguous.
+
+    ``tandem_repeats``: per genome, loci where a 100-400 bp unit repeats
+    4-12 times in place; ``dispersed_repeats``: per genome, 500-1500 bp
+    blocks copied to 3 more places in the same genome (a read inside one
+    has several equal loci in one genome, which must not become
+    cross-genome ambiguity)."""
+    seqs = [rng.integers(0, 4, size=genome_len).astype(np.uint8) for _ in range(n_genomes)]
+    for _ in range(shared_blocks):
+        block = rng.integers(0, 4, size=shared_len).astype(np.uint8)
+        for g in range(n_genomes):
+            if rng.random() < 0.5:  # each genome carries about half the blocks
+                start = int(rng.integers(0, genome_len - shared_len))
+                seqs[g][start : start + shared_len] = block
+    for g in range(n_genomes):
+        for _ in range(tandem_repeats):
+            unit = rng.integers(0, 4, size=int(rng.integers(100, 400))).astype(np.uint8)
+            n_copies = int(rng.integers(4, 13))
+            span = len(unit) * n_copies
+            if span < genome_len:
+                start = int(rng.integers(0, genome_len - span))
+                seqs[g][start : start + span] = np.tile(unit, n_copies)
+        for _ in range(dispersed_repeats):
+            blen = int(rng.integers(500, 1500))
+            src = int(rng.integers(0, genome_len - blen))
+            block = seqs[g][src : src + blen].copy()
+            for _ in range(3):
+                dst = int(rng.integers(0, genome_len - blen))
+                seqs[g][dst : dst + blen] = block
+    return seqs
+
+
+def sibling_genome(rng: np.random.Generator, base: np.ndarray, divergence: float,
+                   indel_frac: float = 0.3) -> np.ndarray:
+    """A strain sibling at ANI = 1 - ``divergence``: point substitutions
+    (always a real base change) plus short 1-3 bp deletions and
+    insertions alternating along the genome (``indel_frac`` of the
+    events' bases)."""
+    n = len(base)
+    n_events = int(n * divergence)
+    out = base.copy()
+    n_sub = int(n_events * (1.0 - indel_frac))
+    if n_sub:
+        pos = rng.choice(n, size=n_sub, replace=False)
+        out[pos] = (out[pos] + rng.integers(1, 4, n_sub)) % 4
+    n_indel_bases = n_events - n_sub
+    if n_indel_bases <= 0:
+        return out
+    parts = []
+    cursor = 0
+    budget = n_indel_bases
+    sites = np.sort(rng.choice(n - 8, size=max(n_indel_bases // 2, 1), replace=False))
+    for i, s in enumerate(sites):
+        if budget <= 0 or s <= cursor:
+            continue
+        ln = int(rng.integers(1, 4))
+        parts.append(out[cursor:s])
+        if i % 2 == 0:  # deletion
+            cursor = s + ln
+        else:  # insertion
+            parts.append(rng.integers(0, 4, ln).astype(np.uint8))
+            cursor = s
+        budget -= ln
+    parts.append(out[cursor:])
+    return np.concatenate(parts)
 
 
 def zymo_community(rng: np.random.Generator, scale: float = 1.0) -> list[np.ndarray]:
@@ -71,6 +157,132 @@ def simulate_read_codes(
         ins_vals = rng.integers(0, 4, len(at)).astype(np.uint8)
         frag = np.insert(frag, at + 1, np.where(hp[at], frag[at], ins_vals))
     return frag[:read_len]
+
+
+@dataclass
+class EvalResult:
+    n_reads: int
+    n_mapped: int = 0
+    n_correct: int = 0
+    n_wrong: int = 0
+    n_ambiguous: int = 0
+    n_unmapped: int = 0
+    settings: dict = field(default_factory=dict)
+
+    @property
+    def accuracy(self) -> float:
+        """Share of ALL reads assigned to their true genome."""
+        return self.n_correct / max(self.n_reads, 1)
+
+    @property
+    def precision(self) -> float:
+        """Share of MAPPED reads assigned correctly."""
+        return self.n_correct / max(self.n_mapped, 1)
+
+    def row(self) -> dict:
+        return dict(
+            **self.settings,
+            reads=self.n_reads,
+            accuracy=round(self.accuracy, 4),
+            # no calls: precision is undefined, not zero (all-ambiguous is
+            # the right outcome on a near-identical pair)
+            precision=round(self.precision, 4) if self.n_mapped else None,
+            mapped=self.n_mapped,
+            wrong=self.n_wrong,
+            ambiguous=self.n_ambiguous,
+            unmapped=self.n_unmapped,
+        )
+
+
+def evaluate(
+    built,
+    seqs: list[np.ndarray],
+    params,
+    rng: np.random.Generator,
+    n_reads: int = 512,
+    read_len: int = 1000,
+    error: tuple[float, float, float] = (0.05, 0.03, 0.03),
+    batch: int = 512,
+    hp_bias: float = 1.0,
+    classifier=None,
+    *,
+    device=None,
+    mesh=None,
+) -> EvalResult:
+    """Classify simulated reads against a built index and score them
+    against their truth, through the port's ``Classifier`` (the product
+    dispatch path: packed wire, grouped or mesh stacking, per-bucket
+    params).  Without ``classifier``, one is made in basic count mode on
+    ``device`` or ``mesh``.  The reads are drawn in the JAX package's
+    order, so one seed gives the same reads in both packages."""
+    from monica_tpu_torch.align import pipeline as pl
+    from monica_tpu_torch.align import runtime as rt
+
+    sub, ins, dele = error
+    labels = rng.integers(0, len(seqs), n_reads)
+    rcs = rng.random(n_reads) < 0.5
+    codes = np.full((n_reads, read_len), 4, dtype=np.uint8)
+    lengths = np.zeros(n_reads, dtype=np.int32)
+    for i in range(n_reads):
+        r = simulate_read_codes(rng, seqs[labels[i]], read_len, sub, ins, dele, rcs[i],
+                                hp_bias=hp_bias)
+        codes[i, : len(r)] = r
+        lengths[i] = len(r)
+
+    clf = classifier or rt.Classifier(built, params, count_mode="basic", device=device,
+                                      mesh=mesh)
+    mult = clf.batch_row_multiple()
+    res = EvalResult(n_reads=n_reads)
+    for s0 in range(0, n_reads, batch):
+        n = min(batch, n_reads - s0)
+        rows = -(-n // mult) * mult  # padding rows: length 0, masked
+        c = np.full((rows, read_len), 4, np.uint8)
+        c[:n] = codes[s0 : s0 + n]
+        ln = np.zeros(rows, np.int32)
+        ln[:n] = lengths[s0 : s0 + n]
+        st, ac, _ml, _c = clf.fetch(*clf.classify(c, ln))
+        for r, lab in enumerate(labels[s0 : s0 + n]):
+            if st[r] == pl.MAPPED:
+                res.n_mapped += 1
+                if ac[r] == lab:
+                    res.n_correct += 1
+                else:
+                    res.n_wrong += 1
+            elif st[r] == pl.AMBIGUOUS:
+                res.n_ambiguous += 1
+            else:
+                res.n_unmapped += 1
+    return res
+
+
+def strain_pair_eval(
+    rng: np.random.Generator,
+    params,
+    genome_len: int = 1_000_000,
+    divergence: float = 0.03,
+    n_reads: int = 512,
+    read_len: int = 1000,
+    error: tuple[float, float, float] = (0.05, 0.03, 0.03),
+    hp_bias: float = 1.0,
+    *,
+    device,
+) -> EvalResult:
+    """Strain discrimination at ANI = 1 - ``divergence``: a base genome
+    and its sibling indexed together (built on ``device``), reads drawn
+    from both.  At high ANI many reads cannot be told apart and the right
+    answer is AMBIGUOUS, not a guess: precision (correct / mapped) is the
+    gated metric."""
+    from monica_tpu_torch.index.build import build_index_from_arrays
+
+    base = rng.integers(0, 4, genome_len).astype(np.uint8)
+    sib = sibling_genome(rng, base, divergence)
+    built = build_index_from_arrays([base, sib], tax_units=["Base_sp", "Sibling_sp"],
+                                    device=device)
+    res = evaluate(built, [base, sib], params, rng, n_reads=n_reads, read_len=read_len,
+                   error=error, hp_bias=hp_bias, device=device)
+    res.settings = dict(kind="strain_pair", ani=round(1.0 - divergence, 4),
+                        genome_len=genome_len, read_len=read_len, error=error, hp_bias=hp_bias)
+    return res
 
 
 def bench_reads(seqs, rng: np.random.Generator, n_reads: int, read_len: int = 1024,

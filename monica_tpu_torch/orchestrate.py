@@ -10,9 +10,9 @@ fetch -> build or load the cached index groups -> classify -> tables
 * the focus pass re-classifies ``<query>/focus`` against the
   strain-level F_ index into ``<output>/focus``.
 
-Every build and every ``Classifier`` runs on ``AnalysisConfig.device``.
-One device only: a configuration that needs a mesh of several devices
-raises ``NotImplementedError`` until the multi-device step is ported.
+Every build and every ``Classifier`` runs on ``AnalysisConfig.device``,
+or on a mesh of the visible CUDA cards (``resolve_mesh``) when
+``n_data`` asks for more than one device.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ from monica_tpu_torch.data import tables as gtables
 from monica_tpu_torch.data.taxonomy import Taxonomy
 from monica_tpu_torch.index import artifact
 from monica_tpu_torch.index.build import BuiltIndex, build_index, merge_built
+from monica_tpu_torch.parallel import dist
+from monica_tpu_torch.parallel import mesh as pm
 from monica_tpu_torch.plots import barplot
 from monica_tpu_torch.stats.abundance import AbundanceState, export_tables
 from monica_tpu_torch.utils import root as rootutil
@@ -190,13 +192,18 @@ class AnalysisConfig:
 def resolve_mesh(n_data: int, n_shards: int, device):
     """The ('data', 'index') mesh a run needs, or None for one device.
     The index axis is sized as in the JAX package: the largest divisor of
-    the device count that is <= n_shards when n_data is 'auto', else
-    min(n_shards, devices // n_data).  The devices are the CUDA cards
-    (one CPU device counts as one).  A mesh of more than one device
-    raises NotImplementedError: the multi-device step is not ported."""
+    the device count that is <= n_shards when n_data is 'auto' (every
+    device used, data parallelism kept: 5 shards on 8 devices give
+    (data=2, index=4), not (1, 5)), else min(n_shards, devices //
+    n_data).  The devices are the visible CUDA cards of every process
+    (a CPU device counts as one); the policy never repeats a device, as
+    repeated devices are a library and test tool, not a CLI route.  A
+    multi-process mesh must span every process's devices."""
     if not n_data or n_data == 1:
         return None
-    n_dev = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+    local = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+             if torch.device(device).type == "cuda" else [torch.device(device)])
+    n_dev = len(local) * dist.process_count()
     if n_data == -1:
         n_index = max(d for d in range(1, n_dev + 1)
                       if n_dev % d == 0 and d <= max(n_shards, 1))
@@ -207,12 +214,25 @@ def resolve_mesh(n_data: int, n_shards: int, device):
                 f"--n_data {n_data} needs {n_data} devices, but only {n_dev} are available"
             )
         n_index = min(max(n_shards, 1), n_dev // n_data)
-    if n_data * n_index == 1:
+    need = n_data * n_index
+    if need == 1:
         return None
-    raise NotImplementedError(
-        f"a (data={n_data}, index={n_index}) mesh needs several devices; multi-device "
-        "classification is not ported yet (ROADMAP.md, modules to port: multi-device)"
-    )
+    if dist.process_count() > 1 and need != n_dev:
+        # a mesh over a subset can leave a process without data rows,
+        # breaking the per-process feed contract: refuse, not deadlock
+        raise SystemExit(
+            f"a multi-process mesh must span all {n_dev} devices, but n_data={n_data} x "
+            f"n_index={n_index} = {need}; adjust --n_data/-n (or use --n_data auto)"
+        )
+    return pm.make_mesh(n_data, n_index, devices=local)
+
+
+def _classifier(built: BuiltIndex, params: pl.ClassifyParams, cfg: AnalysisConfig):
+    """The run's Classifier: on the mesh ``resolve_mesh`` gives, else on
+    ``cfg.device``."""
+    mesh = resolve_mesh(cfg.n_data, len(built.shards), cfg.device)
+    return rt.Classifier(built, params, count_mode=cfg.alignment_mode,
+                         device=None if mesh else cfg.device, mesh=mesh)
 
 
 def run_analysis(ctx: DataContext, cfg: AnalysisConfig, metrics: Metrics | None = None):
@@ -258,8 +278,7 @@ def run_analysis(ctx: DataContext, cfg: AnalysisConfig, metrics: Metrics | None 
 
     built = merge_built(parts)
     params = pl.ClassifyParams(extend=cfg.extend, band=cfg.band)
-    classifier = rt.Classifier(built, params, count_mode=cfg.alignment_mode, device=cfg.device,
-                               mesh=resolve_mesh(cfg.n_data, len(built.shards), cfg.device))
+    classifier = _classifier(built, params, cfg)
 
     focus_units = frozenset("_".join(f.split(" ")) for f in focus)
 
@@ -303,9 +322,7 @@ def run_analysis(ctx: DataContext, cfg: AnalysisConfig, metrics: Metrics | None 
             focus_out = output / "focus"
             focus_out.mkdir(parents=True, exist_ok=True)
             AbundanceState.clear(focus_out)
-            f_clf = rt.Classifier(f_built, params, count_mode=cfg.alignment_mode,
-                                  device=cfg.device,
-                                  mesh=resolve_mesh(cfg.n_data, len(f_built.shards), cfg.device))
+            f_clf = _classifier(f_built, params, cfg)
             f_reports = rt.run_once(f_clf, focus_query, focus_out, metrics=metrics,
                                     max_batch=cfg.max_batch)
             if f_reports:

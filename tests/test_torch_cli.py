@@ -7,6 +7,7 @@ subcommands, ``--version``, and the refusals: ``--device cuda`` without
 a card, ``--multihost`` and a mesh of several devices."""
 
 import json
+import os
 import shutil
 from pathlib import Path
 
@@ -198,7 +199,8 @@ def test_cli_initialize_and_version(tmp_path, monkeypatch, capsys):
 
 def test_cli_refuses_what_it_cannot_run(world, tmp_path):
     """No card: --device cuda exits with an error before anything runs.
-    --multihost and a mesh of several devices are not ported.  A run
+    --multihost without a coordinator or the env:// variables is
+    refused, and so is a mesh of more devices than there are.  A run
     without a query folder is a usage error."""
     q = _query(world, tmp_path / "q")
     base = ["--root", str(tmp_path / "root"), *_transport(world), "-q", str(q), *SPECIES]
@@ -209,7 +211,9 @@ def test_cli_refuses_what_it_cannot_run(world, tmp_path):
             with pytest.raises(SystemExit, match="torch.cuda.is_available"):
                 cli.main(argv)
         assert not (q / "monica_output").exists()
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    for v in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        assert v not in os.environ
+    with pytest.raises(ValueError, match="env://"):
         cli.main(base + ["--device", "cpu", "--multihost"])
     with pytest.raises(SystemExit, match="needs 2 devices"):
         cli.main(base + ["--device", "cpu", "--n_data", "2"])
@@ -220,15 +224,18 @@ def test_cli_refuses_what_it_cannot_run(world, tmp_path):
 
 def test_resolve_mesh_arithmetic(monkeypatch):
     """The mesh sizes follow the JAX package's arithmetic over the CUDA
-    card count; one device gives None, more raise NotImplementedError."""
+    card count; one device gives None, more a mesh of distinct cards."""
     from monica_tpu_torch import orchestrate as orch
 
     assert orch.resolve_mesh(1, 5, "cpu") is None
     assert orch.resolve_mesh(-1, 5, "cpu") is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert orch.resolve_mesh(1, 5, "cuda") is None
-    for n_data, n_shards in ((-1, 5), (2, 1), (4, 1), (-1, 1)):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            orch.resolve_mesh(n_data, n_shards, "cuda")
+    for n_data, n_shards, shape in ((-1, 5, (1, 4)), (2, 1, (2, 1)), (4, 1, (4, 1)),
+                                    (-1, 1, (4, 1))):
+        mesh = orch.resolve_mesh(n_data, n_shards, "cuda")
+        assert (mesh.shape["data"], mesh.shape["index"]) == shape
+        cells = [d for row in mesh.devices for d in row]
+        assert cells == [torch.device("cuda", i) for i in range(len(cells))]
     with pytest.raises(SystemExit, match="needs 8 devices"):
         orch.resolve_mesh(8, 1, "cuda")

@@ -62,13 +62,14 @@ def test_module_list_covers_the_slice():
     for name in ("index.minimizer", "index.build", "ops.lookup", "ops.chain",
                  "ops.extend", "ops._native", "align.pipeline", "align.runtime",
                  "convert", "io.encode", "io.seq", "io.native", "evaluation",
-                 "stats.abundance", "utils.metrics"):
+                 "stats.abundance", "utils.metrics", "parallel.mesh", "parallel.dist"):
         assert f"monica_tpu_torch.{name}" in MODULES
 
 
 def test_module_list_covers_the_product_path():
     for name in ("index.artifact", "data.tables", "data.fetcher", "data.taxonomy",
-                 "plots.barplot", "orchestrate", "cli", "utils.root", "utils.units"):
+                 "plots.barplot", "orchestrate", "cli", "utils.root", "utils.units",
+                 "parity", "concordance"):
         assert f"monica_tpu_torch.{name}" in MODULES
 
 
@@ -154,7 +155,8 @@ def test_classifier_requires_device_and_refuses_mesh():
     built = build_index_from_arrays([rng.integers(0, 4, 5000).astype(np.uint8)], device="cpu")
     with pytest.raises(TypeError):
         rt.Classifier(built)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # a device or a mesh, not both
+    with pytest.raises(TypeError, match="device or a mesh"):
         rt.Classifier(built, device="cpu", mesh=object())
     two = build_index_from_arrays(
         [rng.integers(0, 4, 5000).astype(np.uint8) for _ in range(2)], n_shards=2, device="cpu"
