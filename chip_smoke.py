@@ -53,7 +53,16 @@ on the card at the main path's shapes, with its time beside its bound
   (``[cli]``); the library run on the saved artifact and ``plot_only``
   held byte-equal to the CLI's tables and HTML (``[cli_agree]``);
 * the accuracy harness, ``python -m monica_tpu_torch.concordance --device
-  cuda`` at its default sizes, every row and the gate (``[concordance]``).
+  cuda`` at its default sizes, every row and the gate (``[concordance]``);
+* the real-time loop: ``monica_tpu_torch.demo_watch`` at its default
+  sizes, each pass with its batch-to-table latency (``[watch]``), and the
+  CLI's ``--watch`` over the [cli] samples fed one at a time, byte-equal
+  to [cli]'s outputs (``[cli_watch]``);
+* the product's checks at their default sizes: quantification accuracy
+  (``[abundance]``, r9_old also on the CPU, which must equal the card),
+  rescue-tier demand and the r9_old gate (``[sensitivity]``), both beside
+  the JAX package's artifacts, and the ingest memory bound
+  (``[ingest_rss]``); each of these five phases prints its wall time.
 
 Every phase prints one line; any failure raises, so the exit code is
 nonzero and the final line is missing.  The last two lines are the
@@ -76,6 +85,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -84,6 +94,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from monica_tpu_torch import demo_watch
 from monica_tpu_torch._u32 import u32
 from monica_tpu_torch.align import pipeline as pl
 from monica_tpu_torch.align import runtime as rt
@@ -1134,6 +1145,24 @@ def multiproc(dev, built, clf, tmp: Path, first: dict) -> None:
             launches=json.dumps([w["launches"] for w in work], separators=(",", ":")))
 
 
+def artifact_rows(name: str) -> dict:
+    """The JAX package's committed artifact ``name`` beside this script."""
+    return json.loads((Path(__file__).resolve().parent / name).read_text())
+
+
+def artifact_diff(row: dict, artifact_row: dict) -> dict:
+    """The artifact's values of the fields (all but the timing) where
+    ``row`` differs from it."""
+    return {k: artifact_row.get(k) for k in row
+            if k != "seconds" and row[k] != artifact_row.get(k)}
+
+
+def flat(row: dict) -> dict:
+    """A row for say(): lists and dicts as compact JSON."""
+    return {k: json.dumps(v, separators=(",", ":")) if isinstance(v, (list, tuple, dict)) else v
+            for k, v in row.items()}
+
+
 def concordance_phase(tmp: Path) -> None:
     """[concordance]: ``python -m monica_tpu_torch.concordance --device
     cuda`` at its default sizes (in this process, as its __main__), every
@@ -1144,8 +1173,7 @@ def concordance_phase(tmp: Path) -> None:
                        module="monica_tpu_torch.concordance")
     out = json.loads(art.read_text())
     for r in out["rows"] + out["strain_rows"]:
-        say("concordance", **{k: json.dumps(v, separators=(",", ":")) if isinstance(v, (list, tuple))
-                              else v for k, v in r.items()})
+        say("concordance", **flat(r))
     say("concordance", verdict=repr(out["verdict"]), worst_gated_accuracy=out["worst_gated_accuracy"],
         r9_old_gate=out["r9_old_gate"]["pass"], strain_gate=out["strain_gate"],
         exit_code=rc, wall_s=f"{wall:.1f}",
@@ -1272,7 +1300,7 @@ def cli(dev, seqs, tmp: Path) -> dict:
         launches=json.dumps(launches, separators=(",", ":")),
         launch_shapes=json.dumps(shapes, separators=(",", ":")))
     check(acc >= MIN_ACCURACY, f"cli accuracy {acc:.4f} < {MIN_ACCURACY}")
-    return dict(root=root, q=q, out=out, log=log, inputs=inputs)
+    return dict(root=root, q=q, out=out, log=log, inputs=inputs, common=common, groups=groups)
 
 
 def cli_agree(dev, tmp: Path, run: dict) -> None:
@@ -1316,6 +1344,154 @@ def cli_agree(dev, tmp: Path, run: dict) -> None:
         plot_only_equals_cli_but_title=True, html_bytes=len(replot))
 
 
+def watch_phase(dev, tmp: Path, smi: str) -> None:
+    """[watch]: ``monica_tpu_torch.demo_watch`` at its default sizes on the
+    card (the JAX demo's workload: a feeder thread renames 4 batches of
+    8,192 1 kb reads into the query folder 2 s apart while ``watch``
+    polls), every pass printed with its batch-to-table latency.  The gate,
+    32,768 reads, and a total that grows by 8,192,000 counted bases for
+    each file a pass took, from the warm sample's 4,096,000 to 36,864,000."""
+    _native.reset_launch_counts()
+    t0 = time.perf_counter()
+    payload, _ = demo_watch.run(dev, tmp / "watch", **demo_watch.FULL)
+    wall = time.perf_counter() - t0
+    launches = dict(_native.LAUNCHES)
+    full = demo_watch.FULL
+    total = full["warm_reads"] * demo_watch.READ_LEN
+    for b in payload["batch_log"]:
+        say("watch", **flat(b))
+        total += len(b["samples"]) * full["reads"] * demo_watch.READ_LEN
+        check(b["accumulated_count_total"] == total,
+              f"watch: total {b['accumulated_count_total']} after {b['samples']}, not {total}")
+    lat = [b["latency_s"] for b in payload["batch_log"]]
+    say("watch", verdict=payload["verdict"], reads_processed=payload["reads_processed"],
+        mapped=payload["mapped"], passes=len(lat), latency_s_max=f"{max(lat):.4f}",
+        latency_s_median=f"{float(np.median(lat)):.4f}", index_build_s=payload["index_build_s"],
+        device=repr(payload["device"]), gpu=repr(smi), wall_s=f"{wall:.1f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    n = full["n_batches"] * full["reads"]
+    check(payload["verdict"] == "PASS", f"watch: verdict {payload['verdict']}")
+    check(payload["reads_processed"] == n, f"watch: {payload['reads_processed']} reads, not {n}")
+    check(total == 36_864_000, f"watch: final total {total}")
+    torch.cuda.empty_cache()
+
+
+def cli_watch(tmp: Path, run: dict) -> None:
+    """[cli_watch]: the [cli] analysis run again on the cached indexes with
+    ``--watch --poll 0.5 --max_idle_polls 8``, its 4 samples renamed into
+    an empty query folder one at a time, 1 s apart, by a feeder thread:
+    the routed reads and both tables byte-equal to [cli]'s, which found
+    all 4 at once."""
+    q, out = tmp / "cliw_query", tmp / "cliw_out"
+    q.mkdir()
+
+    def feeder():
+        for name, data in sorted(run["inputs"].items()):
+            part = q / f".{name}.tmp"
+            part.write_bytes(data)
+            part.rename(q / name)
+            time.sleep(1.0)
+
+    th = threading.Thread(target=feeder)
+    _native.reset_launch_counts()
+    th.start()
+    try:
+        rc, wall = run_cli([*run["common"], "-q", str(q), "-o", str(out), *run["groups"],
+                            "--not_auto_open_plot", "--watch", "--poll", "0.5",
+                            "--max_idle_polls", "8"], run["log"])
+    finally:
+        th.join()
+    launches = dict(_native.LAUNCHES)
+    check(rc == 0, f"cli --watch exited {rc}")
+    check(not list(q.glob("*.fastq")) and not (q / rt.FAILED_DIR).exists(),
+          "cli --watch: a sample was not consumed, or quarantined")
+    check(routed(q) == routed(run["q"]), "cli --watch: routed reads differ from [cli]'s")
+    for f in (DATAFRAME_FILENAME, RAW_DATAFRAME_FILENAME):
+        check((out / f).read_bytes() == (run["out"] / f).read_bytes(),
+              f"cli --watch: {f} differs from [cli]'s")
+    for name in ("banded_sw_packed_w64", "banded_sw_pairstate_w64"):
+        check(launches[name] > 0, f"cli --watch: {name} never launched")
+    say("cli_watch", exit_code=rc, wall_s=f"{wall:.2f}", samples=len(run["inputs"]),
+        feed_gap_s=1.0, routed_equal=True, tables_byte_equal=True,
+        launches=json.dumps(launches, separators=(",", ":")))
+
+
+def abundance_phase(tmp: Path) -> None:
+    """[abundance]: ``python -m monica_tpu_torch.abundance_accuracy --device
+    cuda`` at its default sizes (8,192 reads x 4 profiles), every row
+    beside ``ABUNDANCE_r05.json``'s (the JAX package's), the gate; then the
+    r9_old profile on the CPU (its own host build), which must equal the
+    card's row."""
+    art = tmp / "abundance.json"
+    _native.reset_launch_counts()
+    rc, wall = run_cli(["--device", "cuda", "--out", str(art)], tmp / "abundance.log",
+                       module="monica_tpu_torch.abundance_accuracy")
+    launches = dict(_native.LAUNCHES)
+    out = json.loads(art.read_text())
+    ref = {r["profile"]: r for r in artifact_rows("ABUNDANCE_r05.json")["rows"]}
+    for r in out["rows"]:
+        diff = artifact_diff(r, ref[r["profile"]])
+        say("abundance", **flat(r), artifact_equal=not diff,
+            artifact_diff=json.dumps(diff, separators=(",", ":")))
+    say("abundance", gate=out["gate"]["passed"], exit_code=rc, wall_s=f"{wall:.1f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    check(rc == 0 and out["gate"]["passed"], f"abundance: exit {rc}, gate {out['gate']}")
+    check(launches["banded_sw_packed_w64"] > 0, "abundance: banded_sw_packed_w64 never launched")
+
+    from monica_tpu_torch import abundance_accuracy as aa  # after runpy ran it as __main__
+
+    seqs = aa.community(aa.GENOME_LENGTHS)
+    t0 = time.perf_counter()
+    cpu_row = aa.run_profile(build_index_from_arrays(seqs, device="cpu"), seqs, aa.MIXTURE,
+                             dict(aa.PROFILES)["r9_old"], 8192, 1000, tmp / "abundance_cpu",
+                             device="cpu")
+    card_row = next(r for r in out["rows"] if r["profile"] == "r9_old")
+    equal = all(card_row[k] == v for k, v in cpu_row.items())
+    say("abundance", profile="r9_old", cpu_vs_card=equal, cpu_s=f"{time.perf_counter() - t0:.1f}")
+    check(equal, f"abundance: r9_old on the CPU {cpu_row} differs from the card's {card_row}")
+
+
+def sensitivity_phase(tmp: Path) -> None:
+    """[sensitivity]: ``python -m monica_tpu_torch.sensitivity_r9 --device
+    cuda`` at its default sizes (8 x 500 kb, 1,024 reads at 300, 1,000
+    and 5,000 bp), every saturation and setting row beside
+    ``SENSITIVITY_r05.json``'s (the JAX package's); the r9_old gate."""
+    art = tmp / "sensitivity.json"
+    _native.reset_launch_counts()
+    rc, wall = run_cli(["--device", "cuda", "--out", str(art)], tmp / "sensitivity.log",
+                       module="monica_tpu_torch.sensitivity_r9")
+    launches = dict(_native.LAUNCHES)
+    out, ref = json.loads(art.read_text()), artifact_rows("SENSITIVITY_r05.json")
+    for part, key in (("saturation", ("profile", "read_len")),
+                      ("rows", ("setting", "profile", "read_len"))):
+        want = {tuple(r[k] for k in key): r for r in ref[part]}
+        for r in out[part]:
+            diff = artifact_diff(r, want[tuple(r[k] for k in key)])
+            say("sensitivity", **flat(r), artifact_equal=not diff,
+                artifact_diff=json.dumps(diff, separators=(",", ":")))
+    say("sensitivity", r9_old_gate=out["gate"]["passed"], exit_code=rc, wall_s=f"{wall:.1f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    check(rc == 0 and out["gate"]["passed"], f"sensitivity: exit {rc}, gate {out['gate']}")
+
+
+def ingest_phase(tmp: Path) -> None:
+    """[ingest_rss]: ``python -m monica_tpu_torch.ingest_rss`` at its
+    default 256 MB file and 32 MB chunks: the record counts equal (the
+    module exits 1 otherwise) and the chunked parse's RSS above the
+    baseline within 4 chunks."""
+    art = tmp / "ingest_rss.json"
+    rc, wall = run_cli(["--out", str(art)], tmp / "ingest_rss.log",
+                       module="monica_tpu_torch.ingest_rss")
+    check(rc == 0, f"ingest_rss exited {rc}")
+    out = json.loads(art.read_text())
+    say("ingest_rss", **flat({k: v for k, v in out.items() if k != "bound"}), wall_s=f"{wall:.1f}")
+    check(out["chunked_delta_over_chunk"] <= 4,
+          f"ingest_rss: chunked parse {out['chunked_delta_mb']} MB over the baseline")
+    check(out["whole_delta_mb"] > out["chunked_delta_mb"] > 0,
+          "ingest_rss: the whole-file parse must peak above the chunked one, both above the "
+          "baseline")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
@@ -1354,6 +1530,14 @@ def main() -> None:
         run = cli(dev, zymo, Path(tmp))
         cli_agree(dev, Path(tmp), run)
         concordance_phase(Path(tmp))
+        for name, phase in (("watch", lambda: watch_phase(dev, Path(tmp), smi)),
+                            ("cli_watch", lambda: cli_watch(Path(tmp), run)),
+                            ("abundance", lambda: abundance_phase(Path(tmp))),
+                            ("sensitivity", lambda: sensitivity_phase(Path(tmp))),
+                            ("ingest_rss", lambda: ingest_phase(Path(tmp)))):
+            t0 = time.perf_counter()
+            phase()
+            say("phase_wall", name=name, seconds=f"{time.perf_counter() - t0:.1f}")
 
     table = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,

@@ -73,6 +73,52 @@ def test_module_list_covers_the_product_path():
         assert f"monica_tpu_torch.{name}" in MODULES
 
 
+CHECKS = ("demo_watch", "abundance_accuracy", "sensitivity_r9", "ingest_rss")
+
+
+def test_module_list_covers_the_checking_entry_points():
+    for name in CHECKS:
+        assert f"monica_tpu_torch.{name}" in MODULES
+
+
+@pytest.mark.parametrize("name", CHECKS)
+def test_checking_entry_point_help_with_jax_and_pandas_blocked(name):
+    """``python -m monica_tpu_torch.<name> --help`` starts with jax, the
+    JAX package and pandas unimportable; each but the host-only
+    ingest_rss takes --device."""
+    proc = _run_blocked(
+        "import runpy\n"
+        f"sys.argv = ['{name}', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('monica_tpu_torch.{name}', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
+        "assert not [m for m in loaded if m in ('jax', 'pandas')\n"
+        "            or m.startswith(('jax.', 'monica_tpu.', 'pandas.'))]\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert ("--device" in proc.stdout) == (name != "ingest_rss")
+
+
+@pytest.mark.parametrize("name", CHECKS[:3])
+def test_checking_entry_point_device_defaults_to_cuda(name, monkeypatch):
+    """Nothing picks a device: the default is cuda, as the CLI's."""
+    import argparse
+
+    seen = {}
+
+    def stop(self, args=None, namespace=None):
+        seen.update(vars(argparse.ArgumentParser.parse_known_args(self, args, namespace)[0]))
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    mod = __import__(f"monica_tpu_torch.{name}", fromlist=["main"])
+    with pytest.raises(SystemExit):
+        mod.main([])
+    assert seen["device"] == "cuda"
+
+
 def test_cli_entry_point_runs_with_jax_and_pandas_blocked():
     """``python -m monica_tpu_torch.cli`` starts and answers --version and
     --help with jax, the JAX package and pandas unimportable."""
