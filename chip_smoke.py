@@ -62,11 +62,25 @@ on the card at the main path's shapes, with its time beside its bound
   (``[abundance]``, r9_old also on the CPU, which must equal the card),
   rescue-tier demand and the r9_old gate (``[sensitivity]``), both beside
   the JAX package's artifacts, and the ingest memory bound
-  (``[ingest_rss]``); each of these five phases prints its wall time.
+  (``[ingest_rss]``); each of these five phases prints its wall time;
+* the measurement modules, each run as a user runs it (``python -m``, a
+  child process, its exit code checked and its JSON line parsed and
+  echoed), each with its wall time: ``bench`` by default, with ``--gut``
+  and ``--no-extend`` (``[bench] module=...``: the device pipeline over
+  16 resident batches, bench.py's window without the host pack and the
+  upload that the Classifier's ``[bench] reads=...`` line above holds),
+  ``profile_stages`` (five cumulative variants, launches a stage),
+  ``bench_stream`` at its default sizes, ``bench_sw`` at 2048 × 1024 and
+  ``roofline_sw`` (measured int32 and DPX rates, SASS instructions a
+  step, both bands at 4096 × 1024), the first 128 reads of each of their
+  SW calls held bit-equal to the plain version here and the ALU-ceiling
+  kernel's scalar held to its plain version on the card, then
+  ``exp_knobs``' 12 grid lines.
 
 Every phase prints one line; any failure raises, so the exit code is
 nonzero and the final line is missing.  The last two lines are the
-kernel table and ``{"ok": true, "device": {...}}``.
+kernel table (the three SW instances and the ALU-ceiling kernel) and
+``{"ok": true, "device": {...}}``.
 
 It needs CUDA: without a card it exits nonzero before printing a result.
 """
@@ -87,14 +101,13 @@ import sys
 import tempfile
 import threading
 import time
-import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from monica_tpu_torch import demo_watch
+from monica_tpu_torch import bench, bench_sw, demo_watch, roofline_sw
 from monica_tpu_torch._u32 import u32
 from monica_tpu_torch.align import pipeline as pl
 from monica_tpu_torch.align import runtime as rt
@@ -109,7 +122,7 @@ from monica_tpu_torch.io import encode as enc
 from monica_tpu_torch.io import native
 from monica_tpu_torch.io import seq as seqio
 from monica_tpu_torch.io.encode import pack_codes_2bit
-from monica_tpu_torch.ops import _native
+from monica_tpu_torch.ops import _native, ceiling
 from monica_tpu_torch.ops import extend as ex
 from monica_tpu_torch.ops import lookup as lk
 from monica_tpu_torch.parallel import dist
@@ -152,15 +165,37 @@ SOURCE = "monica_tpu_torch/ops/csrc/banded_sw.cu"
 # the card's peak rates, for a kernel's bound: HBM bytes/s from NVIDIA's
 # H100 SXM data sheet; int32 instructions/s, which the data sheet does not
 # list, as 132 SMs x 64 INT32 lanes x the 1.98 GHz boost clock, DPX
-# instructions taken at the same rate
+# instructions taken at the same rate ([roofline_sw] measures the DPX rate
+# with the ALU-ceiling kernel; PERF.md has the reading)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# float32 FMA instructions/s (the data sheet's 67 TFLOP/s outside the tensor
+# cores, 2 flops an FMA): Hopper issues IMAD to the FMA pipe, beside the
+# INT32 pipe, so the ALU-ceiling kernel's bound counts its IMADs at this rate
+FMA_PER_S = 67e12 / 2
 # (kernel instance, TPU kernel it replaces)
 KERNELS = {
     "banded_sw_packed_w64": "monica_tpu/ops/extend.py:449",  # _sw_kernel_pairs
     "banded_sw_packed_w128": "monica_tpu/ops/extend.py:309",  # _sw_kernel_packed
     "banded_sw_pairstate_w64": "monica_tpu/ops/extend.py:258",  # _sw_kernel
 }
+# the ALU-ceiling kernel of [roofline_sw]: no port of a Pallas kernel, it
+# takes the place of the XLA-fused int32 chain the JAX script times
+CEILING = "alu_ceiling"
+CEILING_SOURCE = "monica_tpu_torch/ops/csrc/alu_ceiling.cu"
+CEILING_REPLACES = ("scripts/roofline_sw.py:40 (measure_vpu_ops_per_s: an XLA-fused int32 chain, "
+                    "not a Pallas kernel)")
+# the JSON keys of the JAX measurement programs the port's modules print
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "stat", "quiet_best",
+              "loaded_floor"]  # bench.py:185-196
+BENCH_SW_KEYS = ["metric", "value", "unit", "vs_baseline"]  # scripts/bench_sw.py:59-68
+STREAM_KEYS = ["metric", "value", "unit", "workload", "device", "stat", "single_sample_reps",
+               "single_sample_best", "n_mapped", "n_unmapped", "n_ambiguous", "index_build_s",
+               "stage_reads_per_s", "cross_sample_overlap", "note"]  # scripts/bench_stream.py:166
+ROOFLINE_KEYS = ["measured_vpu_gops_per_s", "measured_dpx_gops_per_s",
+                 "speed_of_light_gcells_per_s", "fraction_of_light"]  # + the DPX rate
+PROFILE_VARIANTS = ["sketch", "+lookup", "+chain", "full(noext)", "full(rescue)"]
+FIRST_READS = 128  # the reads of each full-card SW call held to the plain version
 
 
 def check(ok: bool, msg: str) -> None:
@@ -241,10 +276,7 @@ def sw_bound(name: str, lengths: np.ndarray, L: int, p) -> tuple[float, str]:
     Shuffles are left out, so this stays a lower bound."""
     B, W = len(lengths), p.band
     rows = int(np.clip(lengths, 0, L).sum())
-    window, k = 1 << int(np.ceil(np.log2(ex._gap_reach(W, p.max_gap)))), 0
-    while 3**k < window:
-        k += 1
-    per_cell = 7 + k if name.startswith("banded_sw_packed") else 18 + k
+    per_cell = roofline_sw.per_cell_instructions(name.startswith("banded_sw_packed"), p)
     t_ops = rows * W * per_cell / INT32_OPS_PER_S
     t_bytes = (B * L + B * (L + W) + 12 * B) / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -743,18 +775,7 @@ def host_syncs(clf, codes, lengths) -> list:
     """Where one classify call (before the fetch) syncs the device with
     the host, as torch's sync debug mode reports it: one "file:line"
     per sync."""
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = clf.classify(codes, lengths)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    del out
-    return [f"{Path(w.filename).name}:{w.lineno}" for w in seen
-            if "synchronizing" in str(w.message)]
+    return bench.host_syncs(lambda: clf.classify(codes, lengths), clf.device)
 
 
 def launch_shapes() -> dict:
@@ -1492,6 +1513,202 @@ def ingest_phase(tmp: Path) -> None:
           "baseline")
 
 
+def run_module(module: str, argv: list[str], smi: str, timeout: float,
+               json_last: bool = True) -> tuple[list[str], str, float]:
+    """``python -m <module> <argv>`` in a child process, as a user runs it,
+    from the checkout's root: (its stdout lines, its stderr, wall s).  It
+    must exit 0 and print the card's nvidia-smi line (``smi``) just
+    before its JSON line (``json_last``), else as its last line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *argv], capture_output=True, text=True,
+                          cwd=Path(__file__).resolve().parent, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"{module} {argv} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) >= 2 and lines[-2 if json_last else -1] == smi,
+          f"{module} {argv}: no card line ({smi!r}) before its last line")
+    return lines, proc.stderr, wall
+
+
+def echo(phase: str, lines) -> None:
+    for line in lines:
+        print(f"[{phase}] | {line}", flush=True)
+
+
+def module_launches(lines: list[str]) -> dict:
+    """The ``launches {...}`` line a module prints on the card."""
+    return json.loads(next(ln for ln in lines if ln.startswith("launches {"))[len("launches "):])
+
+
+def bench_phase(smi: str) -> None:
+    """[bench]: ``python -m monica_tpu_torch.bench`` (the device pipeline
+    over 16 resident batches, bench.py's window: no host pack, no upload),
+    by default, with ``--gut`` and with ``--no-extend``: bench.py's JSON
+    keys, the stderr line with syncs a batch and peak MiB, every read
+    mapped as bench.py's workload maps them (>= 0.95)."""
+    for flags in ([], ["--gut"], ["--no-extend"]):
+        lines, err, wall = run_module("monica_tpu_torch.bench", flags, smi, 600)
+        out = json.loads(lines[-1])
+        check(list(out) == BENCH_KEYS and out["value"] > 0, f"bench {flags}: JSON line {out}")
+        line = next(ln for ln in err.splitlines() if ln.startswith("[bench] index="))
+        mapped = float(re.search(r"mapped_frac=([\d.]+)", line).group(1))
+        syncs = re.search(r"host_syncs_per_batch=(\d+)", line)
+        check(syncs is not None and re.search(r"peak_mib=\d+", line) is not None,
+              f"bench {flags}: no syncs a batch or peak MiB on the card: {line}")
+        check(mapped >= MIN_ACCURACY, f"bench {flags}: mapped_frac {mapped}")
+        echo("bench", [line])
+        say("bench", module="monica_tpu_torch.bench", flags=" ".join(flags) or "default",
+            wall_s=f"{wall:.1f}", **flat(out))
+
+
+def profile_stages_phase(smi: str) -> None:
+    """[profile_stages]: ``python -m monica_tpu_torch.profile_stages``: the
+    five cumulative variants' ms a batch (the JAX script's keys) and each
+    variant's launches over one batch."""
+    lines, _, wall = run_module("monica_tpu_torch.profile_stages", [], smi, 600)
+    out = json.loads(lines[-1])
+    check(list(out) == ["ms_per_batch_2048"] and list(out["ms_per_batch_2048"]) == PROFILE_VARIANTS,
+          f"profile_stages: JSON line {out}")
+    counted = {ln.split()[1]: dict(kv.split("=") for kv in ln.split()[2:] if "=" in kv)
+               for ln in lines if ln.startswith("launches ")}
+    check(list(counted) == PROFILE_VARIANTS
+          and all(int(c.get("kernels", 0)) > 0 for c in counted.values()),
+          f"profile_stages: launches {counted}")
+    echo("profile_stages", lines[:-2])
+    say("profile_stages", wall_s=f"{wall:.1f}", ms_per_batch_2048=json.dumps(
+        out["ms_per_batch_2048"], separators=(",", ":")),
+        launches=json.dumps(counted, separators=(",", ":")))
+
+
+def bench_stream_phase(tmp: Path, smi: str) -> None:
+    """[bench_stream]: ``python -m monica_tpu_torch.bench_stream`` at its
+    default sizes (100,000 1 kb reads, 8 samples): the JAX script's
+    payload keys, single-sample and pipelined reads/s, overlap_speedup."""
+    lines, _, wall = run_module("monica_tpu_torch.bench_stream",
+                                ["--work", str(tmp / "bench_stream")], smi, 900)
+    out = json.loads(lines[-1])
+    check(list(out) == STREAM_KEYS, f"bench_stream: keys {list(out)}")
+    n = out["n_mapped"] + out["n_unmapped"] + out["n_ambiguous"]
+    check(out["n_mapped"] >= MIN_ACCURACY * n, f"bench_stream: {out['n_mapped']} of {n} mapped")
+    ov = out["cross_sample_overlap"]
+    say("bench_stream", wall_s=f"{wall:.1f}", reads_per_s=out["value"], stat=out["stat"],
+        single_sample_reps=json.dumps(out["single_sample_reps"]), device=repr(out["device"]),
+        mapped=f"{out['n_mapped']}/{n}", index_build_s=out["index_build_s"],
+        stage_reads_per_s=json.dumps(out["stage_reads_per_s"], separators=(",", ":")),
+        **{k: json.dumps(v) if isinstance(v, list) else v for k, v in ov.items()})
+
+
+def first_reads_equal(name: str, q, refwin, lengths, p) -> None:
+    """One SW call on the whole batch, its first FIRST_READS reads held
+    bit-equal to banded_sw_torch on the card (the plain version of the
+    whole batch would take tens of seconds)."""
+    ks, km = ex.banded_sw(q, refwin, lengths, p, impl="cuda")
+    n = FIRST_READS
+    ps, pm = ex.banded_sw_torch(q[:n], refwin[:n], lengths[:n], p)
+    check(torch.equal(ks[:n], ps) and torch.equal(km[:n], pm),
+          f"{name} B={q.shape[0]} L={q.shape[1]}: the first {n} reads differ from the plain "
+          "version")
+
+
+def bench_sw_phase(dev, smi: str) -> None:
+    """[bench_sw]: ``python -m monica_tpu_torch.bench_sw`` at 2048 x 1024,
+    band 64 (Mcells/s, bench_sw.py's keys), its time beside the bound of
+    these inputs; then the same inputs here, the first reads bit-equal."""
+    lines, err, wall = run_module("monica_tpu_torch.bench_sw", [], smi, 300)
+    out = json.loads(lines[-1])
+    check(list(out) == BENCH_SW_KEYS and out["value"] > 0, f"bench_sw: JSON line {out}")
+    B, L, W = 2048, 1024, 64
+    p = ex.ExtendParams(band=W)
+    q, refwin, lengths = bench_sw.inputs(B, L, W, dev)
+    name = "banded_sw_packed_w64"
+    first_reads_equal(name, q, refwin, lengths, p)
+    ms = B * L * W / (out["value"] * 1e6) * 1e3
+    bound_ms, bound_by = sw_bound(name, lengths.cpu().numpy(), L, p)
+    echo("bench_sw", err.strip().splitlines())
+    say("bench_sw", kernel=name, B=B, L=L, W=W, mcells_per_s=out["value"],
+        vs_baseline=out["vs_baseline"], ms=f"{ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+        bound_by=bound_by, share_of_bound=f"{bound_ms / ms:.4f}",
+        launches=module_launches(lines)[name], first_reads_bit_equal=FIRST_READS,
+        wall_s=f"{wall:.1f}")
+
+
+def roofline_phase(dev, tmp: Path, smi: str) -> dict:
+    """[roofline_sw]: ``python -m monica_tpu_torch.roofline_sw``: the
+    measured int32 and DPX rates, SASS instructions a step, both bands at
+    4096 x 1024 beside their bound; then here the ceiling kernel's scalar
+    held to its plain version on the card (both chains, both unrolls) and
+    the first reads of each band's call bit-equal.  Returns the ceiling
+    kernel's entry of the kernels line."""
+    art = tmp / "roofline.json"
+    lines, _, wall = run_module("monica_tpu_torch.roofline_sw", ["--out", str(art)], smi, 300)
+    out, payload = json.loads(lines[-1]), json.loads(art.read_text())
+    check(list(out) == ROOFLINE_KEYS and out["measured_vpu_gops_per_s"] > 0
+          and out["measured_dpx_gops_per_s"] > 0, f"roofline_sw: JSON line {out}")
+    launches = module_launches(lines)
+    echo("roofline_sw", [ln for ln in lines if ln.startswith("ceiling ")])
+    for ch, m in payload["chains"].items():
+        say("roofline_sw", chain=ch, sass_per_step=(payload["sass_per_step"] or {}).get(
+            ch, {}).get("per_step", "not measured"), jax_ops_per_step=3 if ch == "int32" else 1,
+            seconds=json.dumps(m["seconds"], separators=(",", ":")),
+            ratio_1024_over_256=f"{m['ratio']:.4f}", linearity=f"{m['linearity']:.4f}",
+            fixed_us=f"{m['fixed_s'] * 1e6:.2f}", steps_per_s=f"{m['steps_per_s']:.6g}")
+    for r in payload["kernels"]:
+        p = ex.ExtendParams(band=r["band"])
+        q, refwin, lengths = roofline_sw.kernel_inputs(r["band"], r["batch"], r["read_len"], dev)
+        first_reads_equal(r["kernel"], q, refwin, lengths, p)
+        bound_ms, bound_by = sw_bound(r["kernel"], lengths.cpu().numpy(), r["read_len"], p)
+        say("roofline_sw", **flat(r), ms_median=f"{r['seconds_median'] * 1e3:.4f}",
+            bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+            share_of_bound=f"{bound_ms / (r['seconds_median'] * 1e3):.4f}",
+            launches=launches[r["kernel"]], first_reads_bit_equal=FIRST_READS)
+    say("roofline_sw", **flat(out),
+        ceiling_instructions_per_s=f"{payload['ceiling_instructions_per_s']:.6g}",
+        assumed_int32_ops_per_s=f"{INT32_OPS_PER_S:.6g}", wall_s=f"{wall:.1f}")
+
+    x = torch.from_numpy(ceiling.chain_input()).to(dev).reshape(-1)
+    err, plain_ms = 0, {}
+    for ch in ceiling.CHAINS:
+        for u in _native.ALU_UNROLLS:
+            k = ceiling.low32(ceiling.alu_chain(x, u, ch).cpu())
+            plain, plain_ms[ch, u] = synced_ms(lambda: ceiling.low32(
+                ceiling.alu_chain_torch(x, u, ch).cpu()))
+            check(k == plain, f"alu_ceiling {ch} unroll {u}: kernel {k:#x}, plain {plain:#x}")
+            err = max(err, abs(k - plain))
+    # the timed instance: the int32 chain at unroll 1024; its bound counts
+    # each SASS instruction a step on its pipe (IMAD on the FMA pipe)
+    ms = kernel_ms(lambda: ceiling.alu_chain(x, 1024, "int32"))
+    n = x.numel()
+    ops = (payload["sass_per_step"] or {}).get("int32", {}).get("opcodes_per_step")
+    check(bool(ops), "roofline_sw: no SASS count of the int32 chain")
+    t_ops = 1024 * n * max((sum(ops.values()) - ops.get("IMAD", 0)) / INT32_OPS_PER_S,
+                           ops.get("IMAD", 0) / FMA_PER_S)
+    t_bytes = (4 * n + 4) / HBM_BYTES_PER_S
+    entry = dict(launches=launches[CEILING], max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms["int32", 1024], bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+    say("roofline_sw", kernel=CEILING, chains=",".join(ceiling.CHAINS),
+        unrolls=",".join(map(str, _native.ALU_UNROLLS)), lanes=n, scalar_equals_plain=True,
+        kernel_ms_int32_1024=f"{ms:.4f}",
+        plain_ms=json.dumps({f"{c}_{u}": round(v, 1) for (c, u), v in plain_ms.items()}),
+        sass_opcodes_per_step=json.dumps(ops, separators=(",", ":")),
+        bound_ms=f"{entry['bound_ms']:.5f}", bound_by=entry["bound_by"],
+        share_of_bound=f"{entry['bound_ms'] / ms:.4f}", launches=entry["launches"])
+    check(entry["launches"] > 0, "roofline_sw: the ceiling kernel never launched")
+    return entry
+
+
+def exp_knobs_phase(smi: str) -> None:
+    """[exp_knobs]: ``python -m monica_tpu_torch.exp_knobs``: the JAX
+    script's 12 grid lines (S x extend at frac 1.0 and 0.5)."""
+    lines, _, wall = run_module("monica_tpu_torch.exp_knobs", [], smi, 600, json_last=False)
+    grid = [ln for ln in lines if re.match(r"S=\d+ frac=", ln)]
+    check(len(grid) == 12 and sum(ln.startswith("--- frac=") for ln in lines) == 2,
+          f"exp_knobs: {len(grid)} grid lines")
+    echo("exp_knobs", lines[:-1])
+    say("exp_knobs", lines=len(grid), wall_s=f"{wall:.1f}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
@@ -1539,6 +1756,21 @@ def main() -> None:
             phase()
             say("phase_wall", name=name, seconds=f"{time.perf_counter() - t0:.1f}")
 
+    # the measurement modules, each run as a user runs it (a child process)
+    torch.cuda.empty_cache()
+    measured = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_measure_") as tmp:
+        for name, phase in (("bench", lambda: bench_phase(smi)),
+                            ("profile_stages", lambda: profile_stages_phase(smi)),
+                            ("bench_stream", lambda: bench_stream_phase(Path(tmp), smi)),
+                            ("bench_sw", lambda: bench_sw_phase(dev, smi)),
+                            ("roofline_sw", lambda: measured.update(
+                                ceiling=roofline_phase(dev, Path(tmp), smi))),
+                            ("exp_knobs", lambda: exp_knobs_phase(smi))):
+            t0 = time.perf_counter()
+            phase()
+            say("phase_wall", name=name, seconds=f"{time.perf_counter() - t0:.1f}")
+
     table = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
          "launches": launches[name], "max_abs_err": timings[name]["max_abs_err"],
@@ -1547,6 +1779,8 @@ def main() -> None:
          "library_ms": None}
         for name, replaces in KERNELS.items()
     ]
+    table.append({"name": CEILING, "route": "cuda", "source": CEILING_SOURCE,
+                  "replaces": CEILING_REPLACES, **measured["ceiling"], "library_ms": None})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Build and bind the port's CUDA kernels (``ops/csrc/*.cu``).
+"""Build and bind the port's CUDA kernels (``ops/csrc/*.cu``): the
+banded-SW kernels and the ALU-ceiling kernel ``roofline_sw`` times.
 
 At first use the package's ``.cu`` sources are compiled by ``nvcc``
 for ``sm_90a`` into one shared library with a plain C interface, named
@@ -14,12 +15,13 @@ registers, shared memory and spills) is kept beside the library, with
 the suffix ``.log``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current CUDA stream,
+outputs with ``torch.empty`` (``torch.zeros`` for the ALU-ceiling
+kernel's sum, which it adds to), launches on the current CUDA stream,
 raises when the C entry returns a CUDA error, and adds one to its entry
 in :data:`LAUNCHES` per launch (keyed by kernel and band width), so a
 run can show which kernels it went through, and to
-:data:`LAUNCH_SHAPES` (keyed by kernel, B and L), so it can show at
-which shapes.
+:data:`LAUNCH_SHAPES` (keyed by kernel, B and L; for the ALU-ceiling
+kernel, elements and unroll), so it can show at which shapes.
 """
 
 from __future__ import annotations
@@ -40,11 +42,14 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 KERNEL_WIDTHS = (64, 128)  # band widths W the kernels are instantiated for
+ALU_UNROLLS = (256, 512, 1024)  # the ALU-ceiling kernel's chain lengths
+ALU_CHAINS = ("int32", "dpx")
 
 # launches per kernel instance (kernel and band width) since the last
 # reset_launch_counts()
 LAUNCHES = {f"banded_sw_{kind}_w{w}": 0 for kind in ("packed", "pairstate")
             for w in KERNEL_WIDTHS}
+LAUNCHES["alu_ceiling"] = 0
 # launches per (kernel instance, B, L) since the last reset_launch_counts()
 LAUNCH_SHAPES: dict[tuple[str, int, int], int] = {}
 
@@ -112,6 +117,8 @@ def load() -> ctypes.CDLL:
         lib.monica_banded_sw_packed.restype = i32
         lib.monica_banded_sw_pairstate.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
         lib.monica_banded_sw_pairstate.restype = i32
+        lib.monica_alu_ceiling.argtypes = [ptr, i32, i32, i32, ptr, ptr]
+        lib.monica_alu_ceiling.restype = i32
         _lib = lib
     return _lib
 
@@ -170,3 +177,29 @@ def banded_sw_cuda(q: torch.Tensor, refwin: torch.Tensor, lengths: torch.Tensor,
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[name, B, L] = LAUNCH_SHAPES.get((name, B, L), 0) + 1
     return score, mlen
+
+
+def alu_ceiling_cuda(x: torch.Tensor, unroll: int, chain: str) -> torch.Tensor:
+    """The ALU-ceiling chain (``csrc/alu_ceiling.cu``) over every element
+    of a contiguous int32 CUDA tensor ``x``: ``chain`` "int32" or "dpx",
+    ``unroll`` steps (256, 512 or 1024), summed mod 2^32 -> a one-element
+    int32 tensor holding the sum's low 32 bits (``ops.ceiling``)."""
+    if not x.is_cuda:
+        raise ValueError("alu_ceiling_cuda needs a CUDA tensor")
+    if x.dtype != torch.int32 or not x.is_contiguous() or not 0 < x.numel() < 1 << 31:
+        raise ValueError("alu_ceiling_cuda takes a contiguous, non-empty int32 tensor")
+    if unroll not in ALU_UNROLLS or chain not in ALU_CHAINS:
+        raise ValueError(f"alu_ceiling_cuda: unroll {unroll} not in {ALU_UNROLLS}, "
+                         f"or chain {chain!r} not in {ALU_CHAINS}")
+    out = torch.zeros(1, dtype=torch.int32, device=x.device)
+    lib = load()
+    with torch.cuda.device(x.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        err = lib.monica_alu_ceiling(ctypes.c_void_p(x.data_ptr()), x.numel(), unroll,
+                                     int(chain == "dpx"), ctypes.c_void_p(out.data_ptr()), stream)
+    if err != 0:
+        raise RuntimeError(f"alu_ceiling kernel launch failed: CUDA error {err}")
+    LAUNCHES["alu_ceiling"] += 1
+    LAUNCH_SHAPES["alu_ceiling", x.numel(), unroll] = (
+        LAUNCH_SHAPES.get(("alu_ceiling", x.numel(), unroll), 0) + 1)
+    return out

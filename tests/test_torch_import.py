@@ -103,6 +103,10 @@ def test_checking_entry_point_help_with_jax_and_pandas_blocked(name):
 
 @pytest.mark.parametrize("name", CHECKS[:3])
 def test_checking_entry_point_device_defaults_to_cuda(name, monkeypatch):
+    _assert_device_defaults_to_cuda(name, monkeypatch)
+
+
+def _assert_device_defaults_to_cuda(name, monkeypatch):
     """Nothing picks a device: the default is cuda, as the CLI's."""
     import argparse
 
@@ -117,6 +121,40 @@ def test_checking_entry_point_device_defaults_to_cuda(name, monkeypatch):
     with pytest.raises(SystemExit):
         mod.main([])
     assert seen["device"] == "cuda"
+
+
+MEASURE = ("bench", "profile_stages", "bench_stream", "bench_sw", "roofline_sw", "exp_knobs")
+
+
+def test_module_list_covers_the_measurement_entry_points():
+    for name in (*MEASURE, "ops.ceiling"):
+        assert f"monica_tpu_torch.{name}" in MODULES
+
+
+@pytest.mark.parametrize("name", MEASURE)
+def test_measurement_entry_point_imports_nothing_of_jax(name):
+    """``python -m monica_tpu_torch.<name> --help`` starts with jax, the
+    JAX package, pandas, ``bench.py`` and ``scripts/`` unimportable, and
+    offers --device and --quick."""
+    proc = _run_blocked(
+        "sys.modules['bench'] = None\nsys.modules['scripts'] = None\n"
+        "import runpy\n"
+        f"sys.argv = ['{name}', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('monica_tpu_torch.{name}', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
+        "assert not [m for m in loaded if m in ('jax', 'pandas', 'bench')\n"
+        "            or m.startswith(('jax.', 'monica_tpu.', 'pandas.', 'scripts'))]\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and "--quick" in proc.stdout
+
+
+@pytest.mark.parametrize("name", MEASURE)
+def test_measurement_entry_point_device_defaults_to_cuda(name, monkeypatch):
+    _assert_device_defaults_to_cuda(name, monkeypatch)
 
 
 def test_cli_entry_point_runs_with_jax_and_pandas_blocked():
@@ -179,7 +217,7 @@ def test_library_name_keyed_by_sources(monkeypatch):
     path = _native.library_path()
     assert path.parent == ROOT / "build" / "monica_tpu_torch"
     assert path.name.startswith("libmonica_kernels_") and path.suffix == ".so"
-    assert [p.name for p in _native.sources()] == ["banded_sw.cu"]
+    assert [p.name for p in _native.sources()] == ["alu_ceiling.cu", "banded_sw.cu"]
 
 
 def test_build_dir_override_and_installed_package(monkeypatch, tmp_path):
