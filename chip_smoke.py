@@ -70,12 +70,21 @@ on the card at the main path's shapes, with its time beside its bound
   16 resident batches, bench.py's window without the host pack and the
   upload that the Classifier's ``[bench] reads=...`` line above holds),
   ``profile_stages`` (five cumulative variants, launches a stage),
-  ``bench_stream`` at its default sizes, ``bench_sw`` at 2048 × 1024 and
+  ``bench_stream`` at 32,768 reads (its default 100,000 cut for time),
+  ``bench_sw`` at 2048 × 1024 and
   ``roofline_sw`` (measured int32 and DPX rates, SASS instructions a
   step, both bands at 4096 × 1024), the first 128 reads of each of their
   SW calls held bit-equal to the plain version here and the ALU-ceiling
   kernel's scalar held to its plain version on the card, then
-  ``exp_knobs``' 12 grid lines.
+  ``exp_knobs``' 12 grid lines;
+* BASELINE config 5, each a child process: ``scaling_curve`` (the mesh
+  step's overhead on meshes of repeats of the card, ``[scaling_curve]``),
+  ``podscale_model --no-share`` (the JAX script's structural run and the
+  capacity rows from the card's memory, one shard's bytes and R1,
+  ``[podscale]``) and ``podscale_model`` (the pod index's per-card share,
+  ~56 shards of 64 Mbase built and classified on the card, accuracy >=
+  0.95, the SW kernel launched, the (4, 2) mesh equal to the card alone,
+  ``[podscale_share]``).
 
 Every phase prints one line; any failure raises, so the exit code is
 nonzero and the final line is missing.  The last two lines are the
@@ -195,7 +204,15 @@ STREAM_KEYS = ["metric", "value", "unit", "workload", "device", "stat", "single_
 ROOFLINE_KEYS = ["measured_vpu_gops_per_s", "measured_dpx_gops_per_s",
                  "speed_of_light_gcells_per_s", "fraction_of_light"]  # + the DPX rate
 PROFILE_VARIANTS = ["sketch", "+lookup", "+chain", "full(noext)", "full(rescue)"]
+SCALING_KEYS = ["what", "rows_per_device", "meshless_single_dispatch_s", "data_axis_weak_scaling",
+                "index_axis", "lockstep_schedule_s_per_sample", "derived",
+                "reading_guide"]  # scripts/scaling_curve.py:145-184
+SCALING_DERIVED = ["mesh_entry_overhead", "sharding_overhead_8x",
+                   "weak_scaling_eff_8x_cpu_core_bound", "index4_vs_index1"]
+PODSCALE_KEYS = ["config", "structural_validation", "capacity_model", "seconds",
+                 "verdict"]  # scripts/podscale_model.py:197-203; the port adds per_card_share
 FIRST_READS = 128  # the reads of each full-card SW call held to the plain version
+BENCH_STREAM_READS = 32_768  # of bench_stream's 100,000, so the smoke stays under 1,000 s
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1582,11 +1599,13 @@ def profile_stages_phase(smi: str) -> None:
 
 
 def bench_stream_phase(tmp: Path, smi: str) -> None:
-    """[bench_stream]: ``python -m monica_tpu_torch.bench_stream`` at its
-    default sizes (100,000 1 kb reads, 8 samples): the JAX script's
-    payload keys, single-sample and pipelined reads/s, overlap_speedup."""
+    """[bench_stream]: ``python -m monica_tpu_torch.bench_stream`` with
+    ``--reads 32768`` (of its default 100,000: the smoke's time limit; 8
+    samples of the module's 4,096-read floor): the JAX script's payload
+    keys, single-sample and pipelined reads/s, overlap_speedup."""
     lines, _, wall = run_module("monica_tpu_torch.bench_stream",
-                                ["--work", str(tmp / "bench_stream")], smi, 900)
+                                ["--work", str(tmp / "bench_stream"), "--reads",
+                                 str(BENCH_STREAM_READS)], smi, 900)
     out = json.loads(lines[-1])
     check(list(out) == STREAM_KEYS, f"bench_stream: keys {list(out)}")
     n = out["n_mapped"] + out["n_unmapped"] + out["n_ambiguous"]
@@ -1709,6 +1728,83 @@ def exp_knobs_phase(smi: str) -> None:
     say("exp_knobs", lines=len(grid), wall_s=f"{wall:.1f}")
 
 
+def scaling_curve_phase(tmp: Path, smi: str) -> Path:
+    """[scaling_curve]: ``python -m monica_tpu_torch.scaling_curve``: the
+    mesh rows (meshes of repeats of the card), the JAX script's payload
+    keys and its derived block.  Returns the payload's path."""
+    art = tmp / "SCALING_torch.json"
+    lines, _, wall = run_module("monica_tpu_torch.scaling_curve", ["--out", str(art)], smi, 300)
+    out, payload = json.loads(lines[-1]), json.loads(art.read_text())
+    check(list(payload) == SCALING_KEYS and list(out) == SCALING_DERIVED
+          and out == payload["derived"], f"scaling_curve: keys {list(payload)}, {out}")
+    echo("scaling_curve", lines[:-2])
+    say("scaling_curve", wall_s=f"{wall:.1f}", **flat(out),
+        meshless_single_dispatch_s=payload["meshless_single_dispatch_s"],
+        lockstep_schedule_s_per_sample=payload["lockstep_schedule_s_per_sample"])
+    return art
+
+
+def podscale_payload(args: list[str], smi: str, timeout: float) -> tuple[dict, float]:
+    lines, _, wall = run_module("monica_tpu_torch.podscale_model", args, smi, timeout)
+    out = json.loads(lines[-1])
+    check(list(out)[: len(PODSCALE_KEYS)] == PODSCALE_KEYS and "per_card_share" in out,
+          f"podscale_model {args}: keys {list(out)}")
+    check(out["verdict"] == "PASS", f"podscale_model {args}: verdict {out['verdict']}")
+    return out, wall
+
+
+def podscale_phase(scaling: Path, smi: str) -> None:
+    """[podscale]: ``python -m monica_tpu_torch.podscale_model --no-share``:
+    the structural run at the JAX script's size (24 genomes × 60 kb, 24
+    shards; a (4, 2) mesh of the card equal to the card alone) and the
+    capacity rows from the card's memory, one shard's device bytes and
+    R1 (the share's reads against its first shard), with the measured
+    mesh overheads folded in."""
+    out, wall = podscale_payload(["--no-share", "--scaling", str(scaling)], smi, 300)
+    st, model = out["structural_validation"], out["capacity_model"]
+    check(st["mesh_equals_single_device"] and st["n_shards"] == 24,
+          f"podscale: structural {st}")
+    say("podscale", **flat(st))
+    cap = out["per_card_share"]["capacity_inputs"]
+    check(cap["hbm_bytes"] == torch.cuda.get_device_properties(0).total_memory,
+          f"podscale: the model's memory {cap['hbm_bytes']} is not the card's")
+    say("podscale", **flat(cap))
+    for row in model["scaling_rows"]:
+        say("podscale", **flat({k: v for k, v in row.items() if k != "note"}))
+    say("podscale", **flat({k: v for k, v in model["measured_overheads"].items() if k != "note"}),
+        wall_s=f"{wall:.1f}")
+
+
+def podscale_share_phase(scaling: Path, smi: str) -> None:
+    """[podscale_share]: ``python -m monica_tpu_torch.podscale_model``:
+    config 5's per-card share on the card (the shards the capacity model
+    puts on one card, or a cut listed under ``reduced``): reads/s through
+    the Classifier beside R1, ``work_conserving_ratio``, accuracy >= 0.95,
+    ``banded_sw_packed_w64`` launched, syncs and launches a batch, device
+    and host memory, and the (4, 2) mesh equal to the card alone at the
+    share's size."""
+    out, wall = podscale_payload(["--scaling", str(scaling)], smi, 600)
+    share = out["per_card_share"]
+    check(share["full"] and (share["shards"] == share["shards_model"] or share["reduced"]),
+          f"podscale_share: {share['shards']} shards of the model's {share['shards_model']}, "
+          f"nothing listed under reduced")
+    check(share["structural"]["mesh_equals_single_device"]
+          and share["structural"]["n_shards"] == share["shards"],
+          f"podscale_share: structural {share['structural']}")
+    check(share["accuracy"] >= MIN_ACCURACY, f"podscale_share: accuracy {share['accuracy']}")
+    check(share["sw_launches"] >= 1, "podscale_share: banded_sw_packed_w64 never launched")
+    say("podscale_share", **flat({k: share[k] for k in (
+        "shards", "shards_model", "genomes", "genomes_per_shard", "gbase", "reduced",
+        "reads_per_s", "r1_reads_per_s", "work_conserving_ratio", "accuracy",
+        "host_syncs_per_batch", "launches_per_batch", "sw_launches", "stacked_mib",
+        "stacked_bytes_per_base", "peak_device_mib", "host_rss_peak_mb",
+        "mem_available_mb_before", "pass_s", "r1_pass_s")}))
+    say("podscale_share", **flat({k: share[k] for k in ("sync_sites", "structural", "seconds")}),
+        wall_s=f"{wall:.1f}")
+    for row in out["capacity_model"]["scaling_rows"]:
+        say("podscale_share", **flat({k: v for k, v in row.items() if k != "note"}))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
@@ -1766,7 +1862,13 @@ def main() -> None:
                             ("bench_sw", lambda: bench_sw_phase(dev, smi)),
                             ("roofline_sw", lambda: measured.update(
                                 ceiling=roofline_phase(dev, Path(tmp), smi))),
-                            ("exp_knobs", lambda: exp_knobs_phase(smi))):
+                            ("exp_knobs", lambda: exp_knobs_phase(smi)),
+                            ("scaling_curve", lambda: measured.update(
+                                scaling=scaling_curve_phase(Path(tmp), smi))),
+                            ("podscale", lambda: podscale_phase(measured["scaling"], smi)),
+                            ("podscale_share", lambda: podscale_share_phase(
+                                measured["scaling"], smi))):
+            torch.cuda.empty_cache()
             t0 = time.perf_counter()
             phase()
             say("phase_wall", name=name, seconds=f"{time.perf_counter() - t0:.1f}")

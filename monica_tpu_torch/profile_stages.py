@@ -85,18 +85,23 @@ def stages(index, params, n_acc) -> dict:
 
 
 def launches(stage, codes: torch.Tensor, lengths: torch.Tensor) -> dict | None:
-    """Launches of one call of ``stage`` on one batch: CUDA kernels,
-    copies and memsets (``torch.profiler`` device events) and the SW
-    kernels (``_native.LAUNCHES``); None off the card."""
-    if codes.device.type != "cuda":
+    """Launches of one call of ``stage`` on one batch (:func:`count_launches`)."""
+    return count_launches(lambda: stage(codes, lengths), codes.device)
+
+
+def count_launches(fn, device) -> dict | None:
+    """Launches of one call of ``fn()``: CUDA kernels, copies and memsets
+    (``torch.profiler`` device events) and the SW kernels
+    (``_native.LAUNCHES``); None off the card."""
+    if torch.device(device).type != "cuda":
         return None
     from torch.profiler import ProfilerActivity, profile
 
     before = sum(_native.LAUNCHES.values())
-    torch.cuda.synchronize(codes.device)
+    torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stage(codes, lengths)
-        torch.cuda.synchronize(codes.device)
+        fn()
+        torch.cuda.synchronize(device)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
     return {"kernels": len(names) - copies, "copies": copies,

@@ -123,7 +123,8 @@ def _assert_device_defaults_to_cuda(name, monkeypatch):
     assert seen["device"] == "cuda"
 
 
-MEASURE = ("bench", "profile_stages", "bench_stream", "bench_sw", "roofline_sw", "exp_knobs")
+MEASURE = ("bench", "profile_stages", "bench_stream", "bench_sw", "roofline_sw", "exp_knobs",
+           "scaling_curve", "podscale_model")
 
 
 def test_module_list_covers_the_measurement_entry_points():
