@@ -139,7 +139,7 @@ from monica_tpu_torch.parallel import mesh as pm
 from monica_tpu_torch.plots import barplot
 from monica_tpu_torch.stats.abundance import (DATAFRAME_FILENAME, RAW_DATAFRAME_FILENAME,
                                               AbundanceState, export_tables, read_dataframe)
-from monica_tpu_torch.utils.metrics import Metrics
+from monica_tpu_torch.utils.metrics import Metrics, is_span
 
 SEED = 3
 READ_LEN = 1024
@@ -500,7 +500,7 @@ def busy_share(clf, codes, lengths) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_ms = synced_ms(lambda: [clf.fetch(*clf.classify(b, lengths)) for b in codes])
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+             if e.device_type == torch.autograd.DeviceType.CUDA and not is_span(e.name)]
     if not spans:  # the profiler saw no device activity
         return dict(batches=len(codes), wall_ms=round(wall_ms, 2), busy_share="not measured")
     busy_ms = merged_ms(spans)
@@ -828,7 +828,8 @@ def stream_profile(dev, built, clf, tmp: Path, first: dict) -> None:
         reports, wall_ms = synced_ms(lambda: rt.run_once(clf, q, out, max_batch=STREAM_BATCH))
     check_consumed(q, reports, STREAM_SAMPLES, "stream_profile")
     check(report_rows(reports) == first["reports"], "stream_profile: reports differ from [stream]")
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not is_span(e.name)]
     check(bool(device), "stream_profile: the profiler saw no device activity")
     busy_ms = merged_ms((e.time_range.start, e.time_range.end) for e in device)
     sw_ms, sw_n = {}, {}

@@ -12,6 +12,12 @@ budgeted banded-SW rescue -> finalize (one shard) or cross-shard merge
 every tensor lives on the device of the index it is classified against.
 ``stack_mesh_shard_groups`` deals the shards over the index axis of a
 device mesh (``monica_tpu_torch.parallel``).
+
+Each stage opens a ``utils.metrics.span`` (``monica.sketch``,
+``monica.lookup``, ``monica.chain``, ``monica.rescue_pick``,
+``monica.rescue``, ``monica.extend``, ``monica.merge``, ``monica.count``,
+``monica.unpack``, ``monica.shard`` a shard of a grouped index), so a
+profile puts the host's time and the launches on a stage.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from monica_tpu_torch.index.build import IndexShard
 from monica_tpu_torch.ops import chain as ch
 from monica_tpu_torch.ops import extend as ex
 from monica_tpu_torch.ops import lookup as lk
+from monica_tpu_torch.utils.metrics import span
 
 # read status codes
 UNMAPPED = 0
@@ -235,10 +242,11 @@ def params_for_bucket(params: ClassifyParams, bucket_len: int) -> ClassifyParams
 def sketch_batch(codes: torch.Tensor, lengths: torch.Tensor, params: ClassifyParams):
     """Read sketch with slots beyond each read's true length masked;
     shard-independent, so the multi-shard step computes it once."""
-    qh, qp, qs, qv = mz.sketch_reads(codes, params.n_slots, params.k, params.w,
-                                     frac=params.frac)
-    qv = qv & (qp < (lengths[:, None] - params.k + 1))
-    return qh, qp, qs, qv
+    with span("sketch"):
+        qh, qp, qs, qv = mz.sketch_reads(codes, params.n_slots, params.k, params.w,
+                                         frac=params.frac)
+        qv = qv & (qp < (lengths[:, None] - params.k + 1))
+        return qh, qp, qs, qv
 
 
 def classify_shard(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.Tensor,
@@ -247,11 +255,13 @@ def classify_shard(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.
     optional hoisted sketch_batch result."""
     B, L = codes.shape
     qh, qp, qs, qv = sketch if sketch is not None else sketch_batch(codes, lengths, params)
-    key, diag, rpos, fpos = lk.lookup_anchors(
-        index.mz_rows, qh, qp, qs, qv, tag_bits=params.tag_bits, bucket_len=L,
-        anchors_per_seed=params.anchors_per_seed,
-    )
-    res = ch.chain_votes(key, diag, rpos, fpos, max_run=min(128, params.n_slots))
+    with span("lookup"):
+        key, diag, rpos, fpos = lk.lookup_anchors(
+            index.mz_rows, qh, qp, qs, qv, tag_bits=params.tag_bits, bucket_len=L,
+            anchors_per_seed=params.anchors_per_seed,
+        )
+    with span("chain"):
+        res = ch.chain_votes(key, diag, rpos, fpos, max_run=min(128, params.n_slots))
     mapq = ch.mapq_from_votes(res.f1, res.f2)
 
     # anchor-count identity estimate: votes/slots ~ id^k
@@ -273,7 +283,8 @@ def classify_shard(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.
         )
 
     if params.extend and params.extend_mode == "full":
-        ext = extend(slice(None))
+        with span("extend", rows=B):
+            ext = extend(slice(None))
         mlen = ext.mlen.to(torch.float32)
         inv_identity = ext.inv_identity
         rescued = (
@@ -291,27 +302,29 @@ def classify_shard(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.
         # the device; here int(n_cand) decides on the host, which costs
         # one device->host sync per batch and shard.
         cand = ~passed & (res.f1 >= params.rescue_min_votes) & (res.f2 * 2 <= res.f1) & (lengths > 0)
-        n_cand = int(cand.sum())
+        with span("rescue_pick"):
+            n_cand = int(cand.sum())
         if n_cand > 0:
             n8 = max(int(B * params.rescue_frac), 1)
             n2 = max(B // 2, 1)
             n_slots = n8 if n_cand <= n8 else n2 if n_cand <= n2 else B
-            order = torch.argsort(torch.where(cand, 0, 1), stable=True)
-            idx = order[:n_slots]
-            ext = extend(idx)
-            ok = (
-                cand[idx]
-                & (ext.inv_identity <= params.rescue_nm_rate)
-                & (ext.mlen.to(torch.float32) >= params.rescue_min_cov * lf[idx])
-            )
-            rescued = torch.zeros_like(cand).index_put_((idx,), ok)
-            inv_sc = torch.zeros_like(inv_identity).index_put_(
-                (idx,), torch.where(ok, ext.inv_identity, 0.0))
-            mlen_sc = torch.zeros_like(mlen).index_put_(
-                (idx,), torch.where(ok, ext.mlen.to(mlen.dtype), 0.0))
-            passed = passed | rescued
-            inv_identity = torch.where(rescued, inv_sc, inv_identity)
-            mlen = torch.where(rescued, mlen_sc, mlen)
+            with span("rescue", cand=n_cand, slots=n_slots):
+                order = torch.argsort(torch.where(cand, 0, 1), stable=True)
+                idx = order[:n_slots]
+                ext = extend(idx)
+                ok = (
+                    cand[idx]
+                    & (ext.inv_identity <= params.rescue_nm_rate)
+                    & (ext.mlen.to(torch.float32) >= params.rescue_min_cov * lf[idx])
+                )
+                rescued = torch.zeros_like(cand).index_put_((idx,), ok)
+                inv_sc = torch.zeros_like(inv_identity).index_put_(
+                    (idx,), torch.where(ok, ext.inv_identity, 0.0))
+                mlen_sc = torch.zeros_like(mlen).index_put_(
+                    (idx,), torch.where(ok, ext.mlen.to(mlen.dtype), 0.0))
+                passed = passed | rescued
+                inv_identity = torch.where(rescued, inv_sc, inv_identity)
+                mlen = torch.where(rescued, mlen_sc, mlen)
 
     T = index.pos_acc.shape[0]
     acc_id = index.pos_acc[torch.clamp(res.rep_ref_pos, 0, T - 1).long()]
@@ -430,8 +443,11 @@ def classify_batch(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.
                    params: ClassifyParams, n_accessions: int,
                    count_mode: int = MODE_QUERY_LENGTH):
     """Single-shard end-to-end step: reads -> (ReadResult, counts)."""
-    result = finalize_single(classify_shard(index, codes, lengths, params))
-    return result, count_reads(result, lengths, n_accessions, count_mode)
+    hit = classify_shard(index, codes, lengths, params)
+    with span("merge"):
+        result = finalize_single(hit)
+    with span("count"):
+        return result, count_reads(result, lengths, n_accessions, count_mode)
 
 
 def classify_batch_grouped(groups: tuple[DeviceIndexShard, ...], codes: torch.Tensor,
@@ -451,11 +467,13 @@ def classify_groups(groups: tuple[DeviceIndexShard, ...], codes: torch.Tensor,
     here): the hits as one ShardHit of (S, B) fields in group-then-shard
     order."""
     sk = sketch_batch(codes, lengths, params) if sketch is None else sketch
-    hits = [
-        classify_shard(DeviceIndexShard(g.mz_rows[s], g.pos_acc[s], g.ref_codes[s]),
-                       codes, lengths, params, sketch=sk)
-        for g in groups for s in range(g.mz_rows.shape[0])
-    ]
+    hits = []
+    for gi, g in enumerate(groups):
+        for s in range(g.mz_rows.shape[0]):
+            with span("shard", group=gi, shard=s):
+                hits.append(classify_shard(
+                    DeviceIndexShard(g.mz_rows[s], g.pos_acc[s], g.ref_codes[s]),
+                    codes, lengths, params, sketch=sk))
     return ShardHit(*(torch.stack(f) for f in zip(*hits)))
 
 
@@ -463,17 +481,20 @@ def merge_and_count(hits: ShardHit, lengths: torch.Tensor, params: ClassifyParam
                     n_accessions: int, count_mode: int = MODE_QUERY_LENGTH):
     """The (S, B) hits of a batch merged per read (``merge_hits``) and
     counted: (ReadResult, (n_accessions,) counts)."""
-    result = merge_hits(hits, params.tie_rel_tol, params.vote_tie_sd)
-    return result, count_reads(result, lengths, n_accessions, count_mode)
+    with span("merge"):
+        result = merge_hits(hits, params.tie_rel_tol, params.vote_tie_sd)
+    with span("count"):
+        return result, count_reads(result, lengths, n_accessions, count_mode)
 
 
 def unpack_codes(packed: torch.Tensor, read_len: int) -> torch.Tensor:
     """Inverse of ``io.encode.pack_codes_2bit``: (B, ceil(L/4)) uint8
     wire bytes -> (B, L) uint8 base codes."""
     B, P = packed.shape
-    shifts = torch.arange(4, dtype=torch.uint8, device=packed.device) * 2
-    c = (packed[:, :, None] >> shifts[None, None, :]) & 3
-    return c.reshape(B, P * 4)[:, :read_len].contiguous()
+    with span("unpack"):
+        shifts = torch.arange(4, dtype=torch.uint8, device=packed.device) * 2
+        c = (packed[:, :, None] >> shifts[None, None, :]) & 3
+        return c.reshape(B, P * 4)[:, :read_len].contiguous()
 
 
 def classify_batch_packed(index, packed, lengths, read_len, params, n_accessions,

@@ -53,7 +53,7 @@ from monica_tpu_torch.io import seq as seqio
 from monica_tpu_torch.parallel import dist
 from monica_tpu_torch.parallel import mesh as pm
 from monica_tpu_torch.stats.abundance import AbundanceState
-from monica_tpu_torch.utils.metrics import Metrics
+from monica_tpu_torch.utils.metrics import Metrics, span
 
 # routed-output folder names
 MAPPED_DIR = "mapped"
@@ -128,19 +128,21 @@ class Classifier:
         # a mesh's results are fetched from the device of its first local row
         self.device = (torch.device(device) if mesh is None
                        else mesh.row_device(mesh.local_rows()[0]))
-        if mesh is not None:
-            self.index, tag_bits = pm.shard_index(mesh, built.shards)
-        elif len(built.shards) == 1 and built.device:
-            # a one-shard build on the card: its hash table is used as it
-            # is; only the per-position accession ids and the codes are
-            # uploaded
-            table, tag_bits = built.device[0]
-            sh = built.shards[0]
-            self.index = pl.index_tensors(table, sh.pos_accession_id, sh.ref_codes, self.device)
-        elif len(built.shards) == 1:
-            self.index, tag_bits = pl.device_shard(built.shards[0], self.device)
-        else:
-            self.index, tag_bits = pl.stack_device_shard_groups(built.shards, self.device)
+        with span("index_upload", shards=len(built.shards)):
+            if mesh is not None:
+                self.index, tag_bits = pm.shard_index(mesh, built.shards)
+            elif len(built.shards) == 1 and built.device:
+                # a one-shard build on the card: its hash table is used as
+                # it is; only the per-position accession ids and the codes
+                # are uploaded
+                table, tag_bits = built.device[0]
+                sh = built.shards[0]
+                self.index = pl.index_tensors(table, sh.pos_accession_id, sh.ref_codes,
+                                              self.device)
+            elif len(built.shards) == 1:
+                self.index, tag_bits = pl.device_shard(built.shards[0], self.device)
+            else:
+                self.index, tag_bits = pl.stack_device_shard_groups(built.shards, self.device)
         self.params = params._replace(
             tag_bits=tag_bits, k=built.meta.k, w=built.meta.w, frac=built.meta.frac
         )
@@ -153,25 +155,37 @@ class Classifier:
         """Classify one padded (B, L) uint8 batch; returns device
         (ReadResult, counts), on a mesh ({row: ReadResult}, {row:
         counts}) for this process's data rows.  Reads cross to the device
-        2-bit packed (4 bases/byte) and are unpacked there."""
-        params = pl.params_for_bucket(self.params, codes.shape[1])
-        if self.mesh is not None:
-            step = dist.make_sharded_classifier(self.mesh, params, self.meta.n_accessions,
-                                                self.count_mode, self.index)
-            return step(pm.shard_reads(self.mesh, codes, lengths))
-        step = (pl.classify_batch_packed if isinstance(self.index, pl.DeviceIndexShard)
-                else pl.classify_batch_grouped_packed)
-        return step(
-            self.index, self._upload(enc.pack_codes_2bit(codes)),
-            self._upload(np.asarray(lengths, dtype=np.int32)), codes.shape[1], params,
-            self.meta.n_accessions, self.count_mode,
-        )
+        2-bit packed (4 bases/byte) and are unpacked there.  Spans:
+        ``monica.classify`` around ``monica.pack``, ``monica.upload`` and
+        ``monica.pipeline`` (the eager dispatch)."""
+        B, L = codes.shape
+        with span("classify", rows=B, len=L):
+            params = pl.params_for_bucket(self.params, L)
+            if self.mesh is not None:
+                step = dist.make_sharded_classifier(self.mesh, params, self.meta.n_accessions,
+                                                    self.count_mode, self.index)
+                reads = pm.shard_reads(self.mesh, codes, lengths)
+                with span("pipeline"):
+                    return step(reads)
+            step = (pl.classify_batch_packed if isinstance(self.index, pl.DeviceIndexShard)
+                    else pl.classify_batch_grouped_packed)
+            with span("pack"):
+                packed = enc.pack_codes_2bit(codes)
+            with span("upload"):
+                packed = self._upload(packed)
+                lengths = self._upload(np.asarray(lengths, dtype=np.int32))
+            with span("pipeline"):
+                return step(self.index, packed, lengths, L, params, self.meta.n_accessions,
+                            self.count_mode)
 
     def fetch(self, res, counts):
         """Blocking device->host fetch of one classified batch, for THIS
         process's rows: (status, acc_id, mlen) numpy int32 rows and the
-        (n_accessions,) int64 counts of those rows, in one transfer."""
-        return self.fetch_packed(self.dispatch_pack(res, counts))
+        (n_accessions,) int64 counts of those rows, in one transfer.
+        Spans: ``monica.fetch`` around ``monica.pack_results``,
+        ``monica.copy`` and ``monica.split``."""
+        with span("fetch"):
+            return self.fetch_packed(self.dispatch_pack(res, counts))
 
     def _split_packed(self, arr: np.ndarray):
         """(status, acc_id, mlen, counts) from a pl.pack_results array,
@@ -189,10 +203,11 @@ class Classifier:
         (queued behind its batch, no sync); a mesh's rows (this
         process's) are packed each on its device and stacked on the
         Classifier's."""
-        if self.mesh is None:
-            return pl.pack_results(res, counts)
-        return torch.stack([pl.pack_results(res[d], counts[d]).to(self.device)
-                            for d in sorted(res)])
+        with span("pack_results"):
+            if self.mesh is None:
+                return pl.pack_results(res, counts)
+            return torch.stack([pl.pack_results(res[d], counts[d]).to(self.device)
+                                for d in sorted(res)])
 
     def combine_packed(self, handles: list) -> torch.Tensor | None:
         """One device-side concat of a whole sample's packed batches, so
@@ -202,12 +217,16 @@ class Classifier:
 
     def fetch_packed(self, handle: torch.Tensor):
         """Blocking counterpart of dispatch_pack."""
-        return self._split_packed(handle.cpu().numpy())
+        with span("copy"):
+            arr = handle.cpu().numpy()
+        with span("split"):
+            return self._split_packed(arr)
 
     def split_combined(self, combined: torch.Tensor, handles: list) -> list:
         """Fetch a combine_packed tensor (one transfer) and split it back
         into per-batch (status, acc_id, mlen, counts) tuples."""
-        flat = combined.cpu().numpy()
+        with span("copy"):
+            flat = combined.cpu().numpy()
         out = []
         o = 0
         for h in handles:

@@ -19,7 +19,8 @@ Where the build runs follows its explicit ``device``:
 Both routes give bit-identical arrays.  As in the reference, a segment
 whose selected minimizers overflow the compaction capacity (a
 homopolymer-rich reference) sends its shard down the host route; that
-route is counted in :data:`BUILD_ROUTES`.
+route is counted in :data:`BUILD_ROUTES`.  Under a profiler the phases
+show as ``monica.build.*`` spans (``utils.metrics.span``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from monica_tpu_torch.index import minimizer as mz
 from monica_tpu_torch.io import encode as enc
 from monica_tpu_torch.io import seq as seqio
 from monica_tpu_torch.ops import lookup as lk
+from monica_tpu_torch.utils.metrics import span
 
 # a minimizer occurring more than OCC_CAP times in a shard is dropped
 # wholesale (the minimap2 repetitive-seed cut); equal to the hash-row
@@ -476,16 +478,21 @@ def _build_shard(
     """Pack the member units, sketch (on ``sketch_device`` for a shard of
     at least _DEV_MIN_SHARD bases, on the host when it is None), stable
     hash sort, occ cap, per-position accession fill."""
-    packed, pos_acc = _pack(members, units, guard)
-    dev = (_device_sketch_sort(packed.codes, k, w, frac, sketch_device)
-           if sketch_device is not None and len(packed.codes) >= _DEV_MIN_SHARD else None)
+    with span("build.pack", units=len(members)):
+        packed, pos_acc = _pack(members, units, guard)
+    dev = None
+    if sketch_device is not None and len(packed.codes) >= _DEV_MIN_SHARD:
+        with span("build.sketch_sort", bases=len(packed.codes)):
+            dev = _device_sketch_sort(packed.codes, k, w, frac, sketch_device)
     if dev is not None:
         h_s, pos_s, strand_s = dev  # already sorted by (hash, pos)
     else:
-        h, pos, strand = sketch_long_sequence(packed.codes, k, w, frac=frac)
-        order = np.argsort(h, kind="stable")
-        h_s, pos_s, strand_s = h[order], pos[order], strand[order]
-    h_s, pos_s, strand_s = _host_occ_filter(h_s, pos_s, strand_s, occ_cap=occ_cap)
+        with span("build.host_sketch_sort", bases=len(packed.codes)):
+            h, pos, strand = sketch_long_sequence(packed.codes, k, w, frac=frac)
+            order = np.argsort(h, kind="stable")
+            h_s, pos_s, strand_s = h[order], pos[order], strand[order]
+    with span("build.occ_filter"):
+        h_s, pos_s, strand_s = _host_occ_filter(h_s, pos_s, strand_s, occ_cap=occ_cap)
     return IndexShard(
         ref_codes=packed.codes,
         seq_starts=packed.starts,
@@ -504,13 +511,16 @@ def _build_shard_device(members, units, k, w, guard, frac, occ_cap, device):
     (LazyDeviceShard, table, tag_bits), or None when the reference is
     shorter than k or a segment overflows (the caller builds on the
     host)."""
-    packed, pos_acc = _pack(members, units, guard)
-    got = _device_sketch_sort_arrays(packed.codes, k, w, frac, device)
+    with span("build.pack", units=len(members)):
+        packed, pos_acc = _pack(members, units, guard)
+    with span("build.sketch_sort", bases=len(packed.codes)):
+        got = _device_sketch_sort_arrays(packed.codes, k, w, frac, device)
     if got is None:
         return None
     h_dev, ps_dev, total = got
     tag_bits = lk.tag_bits_for(len(packed.codes))
-    table, _n_kept = _device_hash_table(h_dev, ps_dev, total, tag_bits, occ_cap)
+    with span("build.table"):
+        table, _n_kept = _device_hash_table(h_dev, ps_dev, total, tag_bits, occ_cap)
     _count_route("device_table")
     shard = LazyDeviceShard(
         ref_codes=packed.codes,
@@ -578,11 +588,13 @@ def build_index(
         raise ValueError("build_index: empty genome set (nothing to index)")
     genome_lengths = np.zeros(len(genomes), dtype=np.int64)
     all_codes: list[list[np.ndarray]] = []
-    for gi, (path, _hdr) in enumerate(genomes):
-        recs = [enc.encode_seq(r.seq) for r in seqio.read_fasta(path)]
-        all_codes.append(recs)
-        genome_lengths[gi] = int(sum(len(r) for r in recs))
-    units = _segment_records(all_codes)
+    with span("build.read", genomes=len(genomes)):
+        for gi, (path, _hdr) in enumerate(genomes):
+            recs = [enc.encode_seq(r.seq) for r in seqio.read_fasta(path)]
+            all_codes.append(recs)
+            genome_lengths[gi] = int(sum(len(r) for r in recs))
+    with span("build.segment", genomes=len(genomes)):
+        units = _segment_records(all_codes)
     if not units:
         raise ValueError("build_index: genomes contain no sequence records")
     meta = IndexMeta(
@@ -620,7 +632,8 @@ def build_index_from_arrays(
         genome_lengths=np.array([len(s) for s in seqs], dtype=np.int64),
         k=k, w=w, frac=frac, occ_cap=occ_cap,
     )
-    units = _segment_records([[np.asarray(s, dtype=np.uint8)] for s in seqs])
+    with span("build.segment", genomes=n):
+        units = _segment_records([[np.asarray(s, dtype=np.uint8)] for s in seqs])
     shards, dev = _build(units, n_shards, max_shard_bytes, k, w, guard, frac, occ_cap, device)
     return BuiltIndex(meta=meta, shards=shards, device=dev)
 

@@ -47,6 +47,7 @@ from monica_tpu_torch.index.build import build_index_from_arrays
 from monica_tpu_torch.ops import _native
 from monica_tpu_torch.ops import chain as ch
 from monica_tpu_torch.ops import lookup as lk
+from monica_tpu_torch.utils.metrics import is_span
 
 READ_LEN = 1024
 FULL = dict(scale=1.0, batch=2048, n_batches=8, reps=5)
@@ -102,7 +103,8 @@ def count_launches(fn, device) -> dict | None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(device)
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not is_span(e.name)]
     copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
     return {"kernels": len(names) - copies, "copies": copies,
             "sw": sum(_native.LAUNCHES.values()) - before}

@@ -1,7 +1,13 @@
-"""Per-stage timers and throughput counters — counterpart of
-``monica_tpu/utils/metrics.py``.  Stages report through one registry
+"""Per-stage timers, throughput counters and trace spans — counterpart
+of ``monica_tpu/utils/metrics.py``.  Stages report through one registry
 that prints a line per stage and keeps machine-readable totals;
 :func:`profiler_trace` wraps a block in a ``torch.profiler`` trace.
+
+:func:`span` names a piece of host work on the profiler's clock, the
+clock of the device's kernels and copies: while a ``torch.profiler`` is
+recording it opens ``record_function("monica.<name> key=value ...")``,
+so counts travel in the span's name; otherwise it costs one check.
+Every :meth:`Metrics.stage` opens one as ``monica.stage.<stage>``.
 """
 
 from __future__ import annotations
@@ -12,6 +18,30 @@ import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+
+import torch
+from torch.profiler import record_function
+
+# every span's name starts with this; a profile's device-side copies of
+# the spans (user annotations) carry it too
+SPAN_PREFIX = "monica."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, **counts):
+    """A context manager: ``record_function`` under ``monica.<name>`` and
+    `` key=value`` for each count while a profiler records, else a no-op.
+    The counts are formatted only then, so pass values already on the
+    host: a span never syncs, copies or launches."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return record_function(SPAN_PREFIX + name + "".join(f" {k}={v}" for k, v in counts.items()))
+
+
+def is_span(event_name: str) -> bool:
+    """Whether a profiler event is one of :func:`span`'s (on the host or,
+    as an annotation, on the device's timeline)."""
+    return event_name.startswith(SPAN_PREFIX)
 
 
 @dataclass
@@ -30,9 +60,13 @@ class Metrics:
 
     @contextlib.contextmanager
     def stage(self, name: str, items: int = 0):
+        """Time a stage (``"parse:<sample>"``): the host clock into the
+        registry, and the span ``monica.stage.parse of=<sample>``."""
+        kind, _, of = name.partition(":")
         t0 = time.perf_counter()
         try:
-            yield
+            with span(f"stage.{kind}", **({"of": "_".join(of.split())} if of else {})):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.add(name, dt, items)
@@ -71,11 +105,10 @@ class Metrics:
 def profiler_trace(logdir: str | None):
     """Wrap a block in a ``torch.profiler`` trace of the host and, where
     a card is present, the device, written to ``logdir/trace.json`` as a
-    Chrome trace; no-op when logdir is None."""
+    Chrome trace, with the :func:`span`s; no-op when logdir is None."""
     if not logdir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
