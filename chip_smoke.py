@@ -875,6 +875,8 @@ def stream(dev, seqs, built, clf, tmp: Path) -> dict:
     check_consumed(q, reports, STREAM_SAMPLES, "stream")
     check(sum(r.n_reads for r in reports) == n_reads, "stream: read count")
     check(native.PARSED["views"] >= STREAM_SAMPLES, "stream: the native parser did not run")
+    check(native.PACKED["native"] > 0 and native.PACKED["numpy"] == 0,
+          f"stream: the native 2-bit pack did not pack every batch: {native.PACKED}")
     check(launches["banded_sw_packed_w64"] > 0, "stream: banded_sw_packed_w64 never launched")
     check((out / DATAFRAME_FILENAME).exists() and (out / RAW_DATAFRAME_FILENAME).exists(),
           "stream: tables not written")
@@ -896,6 +898,7 @@ def stream(dev, seqs, built, clf, tmp: Path) -> dict:
         accuracy=f"{acc:.4f}", **{f"{k}_share": f"{v / n_reads:.4f}" for k, v in n.items()},
         **{f"{k}_s": f"{v:.3f}" for k, v in stage.items()},
         peak_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.0f}",
+        parsed=native.PARSED["views"], packed=json.dumps(native.PACKED, separators=(",", ":")),
         launches=json.dumps(launches, separators=(",", ":")),
         launch_shapes=json.dumps(shapes, separators=(",", ":")))
     check(acc >= MIN_ACCURACY, f"stream accuracy {acc:.4f} < {MIN_ACCURACY}")

@@ -151,11 +151,23 @@ class Classifier:
         """Host array -> the Classifier's device (``mesh.upload``)."""
         return pm.upload(arr, self.device)
 
+    def _pack(self, codes: np.ndarray) -> torch.Tensor:
+        """A batch's 2-bit wire as a host tensor.  On a card it is packed
+        straight into pinned memory, the buffer the upload copies from;
+        PyTorch's caching host allocator hands the block back once that
+        copy has run, so it does not fault in again each batch."""
+        B, L = codes.shape
+        out = torch.empty((B, -(-L // 4)), dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        enc.pack_codes_2bit(codes, out=out.numpy())
+        return out
+
     def classify(self, codes: np.ndarray, lengths: np.ndarray):
         """Classify one padded (B, L) uint8 batch; returns device
         (ReadResult, counts), on a mesh ({row: ReadResult}, {row:
         counts}) for this process's data rows.  Reads cross to the device
-        2-bit packed (4 bases/byte) and are unpacked there.  Spans:
+        2-bit packed (4 bases/byte; on a card packed into pinned memory,
+        see ``_pack``) and are unpacked there.  Spans:
         ``monica.classify`` around ``monica.pack``, ``monica.upload`` and
         ``monica.pipeline`` (the eager dispatch)."""
         B, L = codes.shape
@@ -170,9 +182,9 @@ class Classifier:
             step = (pl.classify_batch_packed if isinstance(self.index, pl.DeviceIndexShard)
                     else pl.classify_batch_grouped_packed)
             with span("pack"):
-                packed = enc.pack_codes_2bit(codes)
+                packed = self._pack(codes)
             with span("upload"):
-                packed = self._upload(packed)
+                packed = packed.to(self.device, non_blocking=True)
                 lengths = self._upload(np.asarray(lengths, dtype=np.int32))
             with span("pipeline"):
                 return step(self.index, packed, lengths, L, params, self.meta.n_accessions,

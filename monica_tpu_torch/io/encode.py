@@ -1,6 +1,6 @@
 """Base encoding, the 2-bit wire format, read bucketing and reference
-packing (host side, numpy) — counterpart of ``monica_tpu/io/encode.py``,
-with the same outputs.
+packing (host side: numpy, and the wire pack in ``io.native``) —
+counterpart of ``monica_tpu/io/encode.py``, with the same outputs.
 
 Sequences are flat ``uint8`` code arrays: A, C, G, T -> 0..3, anything
 else (N, padding) -> 4.  Reads are padded into power-of-two length
@@ -13,6 +13,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from monica_tpu_torch.io import native
 
 N_CODE = 4
 PAD_CODE = 4
@@ -42,16 +44,31 @@ def revcomp_codes(codes: np.ndarray) -> np.ndarray:
     return comp[::-1]
 
 
-def pack_codes_2bit(codes: np.ndarray) -> np.ndarray:
+def pack_codes_2bit(codes: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
     """(B, L) uint8 codes -> (B, ceil(L/4)) uint8 wire format: 4 bases
     per byte, base i in bits 2*(i % 4) of byte i//4.  Non-ACGT codes map
-    to 0; the device re-masks each row past its length."""
+    to 0; the device re-masks each row past its length.  Written into
+    ``out`` (C-contiguous uint8 of that shape) when given, and returned.
+
+    One native pass (``io.native.pack_2bit``) where the host library
+    loads, else numpy; ``io.native.PACKED`` counts each route."""
     B, L = codes.shape
-    P4 = -(-L // 4) * 4
+    shape = (B, -(-L // 4))
+    if out is None:
+        out = np.empty(shape, np.uint8)
+    elif out.shape != shape or out.dtype != np.uint8:
+        raise ValueError(f"out must be uint8 {shape}, not {out.dtype} {out.shape}")
+    if codes.dtype == np.uint8 and native.load() is not None:
+        native.pack_2bit(np.ascontiguousarray(codes), out)
+        native.count_pack("native")
+        return out
+    P4 = shape[1] * 4
     c = np.zeros((B, P4), np.uint8)
     np.copyto(c[:, :L], np.where(codes < 4, codes, 0))
     c = c.reshape(B, P4 // 4, 4)
-    return c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4) | (c[..., 3] << 6)
+    np.bitwise_or(c[..., 0] | (c[..., 1] << 2), (c[..., 2] << 4) | (c[..., 3] << 6), out=out)
+    native.count_pack("numpy")
+    return out
 
 
 @dataclass

@@ -2,7 +2,8 @@
 ``monica_tpu/io/native``: ``fastq.cpp`` indexes a raw FASTQ buffer into
 record, id and sequence spans, encodes selected reads straight into
 padded code matrices, and concatenates selected raw records for the
-routed outputs.
+routed outputs.  It also packs padded code matrices into the 2-bit wire
+(:func:`pack_2bit`, behind ``io.encode.pack_codes_2bit``).
 
 At first use ``fastq.cpp`` is compiled with ``g++`` into a shared
 library named by a hash of the source and flags, in the port's build
@@ -14,7 +15,8 @@ device kernel: where no compiler is found, :func:`load` returns None and
 the runtime parses with :func:`monica_tpu_torch.io.seq.read_fastq`.
 
 :data:`PARSED` counts the views parsed here, so a run can show that the
-native parser is the one that read its samples.
+native parser is the one that read its samples; :data:`PACKED` counts
+the batches ``pack_codes_2bit`` packed by each route.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 # FastqViews parsed since the last reset_counts()
 PARSED = {"views": 0}
+# batches packed to the 2-bit wire by each route since the last reset_counts()
+PACKED = {"native": 0, "numpy": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -44,6 +48,7 @@ _tried = False
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
 def library_path() -> Path:
@@ -92,6 +97,8 @@ def load():
         lib.concat_records_with_id.argtypes = [buf, _I64P, _I64P, _I64P, _I32P, _I64P, i64,
                                                ctypes.c_char_p, i32, ctypes.c_char_p]
         lib.concat_records_with_id.restype = None
+        lib.pack_2bit.argtypes = [_U8P, i64, i64, _U8P]
+        lib.pack_2bit.restype = None
         _lib = lib
         return _lib
 
@@ -102,6 +109,24 @@ def available() -> bool:
 
 def reset_counts() -> None:
     PARSED["views"] = 0
+    PACKED["native"] = PACKED["numpy"] = 0
+
+
+def count_pack(route: str) -> None:
+    """One batch packed by ``route`` ("native" or "numpy")."""
+    with _lock:
+        PACKED[route] += 1
+
+
+def pack_2bit(codes: np.ndarray, out: np.ndarray) -> None:
+    """Pack C-contiguous (B, L) uint8 codes into C-contiguous
+    (B, ceil(L/4)) uint8 ``out`` (``io.encode.pack_codes_2bit``'s
+    layout) in one pass; the library must be loaded."""
+    B, L = codes.shape
+    if not (codes.dtype == out.dtype == np.uint8 and codes.flags.c_contiguous
+            and out.flags.c_contiguous and out.shape == (B, -(-L // 4))):
+        raise ValueError("pack_2bit needs C-contiguous uint8 (B, L) codes and (B, ceil(L/4)) out")
+    load().pack_2bit(_p(codes, _U8P), B, L, _p(out, _U8P))
 
 
 def _p(arr: np.ndarray, ptype):

@@ -1,10 +1,12 @@
-// Native host-side ingest: FASTQ record indexing + base encoding.
+// Native host-side ingest: FASTQ record indexing, base encoding and the
+// 2-bit wire pack.
 //
 // A single linear scan over the raw buffer produces record/id/sequence
 // byte spans, and a vectorized encoder fills padded uint8 code matrices
 // directly.  Exposed extern "C" for ctypes; the pure-Python fallback is
-// monica_tpu_torch/io/seq.py.  The same source as the JAX package's
-// monica_tpu/io/native/fastq.cpp.
+// monica_tpu_torch/io/seq.py.  Up to pack_2bit, the same source as the
+// JAX package's monica_tpu/io/native/fastq.cpp; pack_2bit's numpy
+// fallback is monica_tpu_torch/io/encode.py:pack_codes_2bit.
 //
 // Build: see monica_tpu_torch/io/native/__init__.py (g++ -O3 -shared
 // -fPIC, at first use, into the port's build directory).
@@ -138,6 +140,38 @@ void concat_records_with_id(const char* buf,
     int64_t post = rec_len[r] - pre - id_len[r];
     memcpy(out + o, buf + id_off[r] + id_len[r], (size_t)post);
     o += post;
+  }
+}
+
+// Pack (n_rows, row_len) uint8 codes into the 2-bit wire, (n_rows,
+// ceil(row_len / 4)) bytes, both C-contiguous: base i in bits 2*(i % 4)
+// of byte i / 4, every code >= 4 (N, PAD) as 0, a short tail byte
+// zero-filled.  One pass, no temporaries, on the caller's thread.  The
+// inner loop vectorises at -O3; on x86-64 an AVX2 clone, picked at load
+// time where the CPU has AVX2, doubles the vector width.
+#if defined(__x86_64__)
+__attribute__((target_clones("avx2", "default")))
+#endif
+void pack_2bit(const uint8_t* __restrict codes, int64_t n_rows, int64_t row_len,
+               uint8_t* __restrict out) {
+  const int64_t full = row_len / 4, out_len = (row_len + 3) / 4;
+  for (int64_t r = 0; r < n_rows; ++r) {
+    const uint8_t* src = codes + r * row_len;
+    uint8_t* dst = out + r * out_len;
+    for (int64_t j = 0; j < full; ++j) {
+      uint8_t a = src[4 * j], b = src[4 * j + 1], c = src[4 * j + 2], d = src[4 * j + 3];
+      a = a < 4 ? a : 0;
+      b = b < 4 ? b : 0;
+      c = c < 4 ? c : 0;
+      d = d < 4 ? d : 0;
+      dst[j] = (uint8_t)(a | (b << 2) | (c << 4) | (d << 6));
+    }
+    if (full < out_len) {
+      uint8_t t = 0;
+      for (int64_t i = 4 * full; i < row_len; ++i)
+        t |= (uint8_t)((src[i] < 4 ? src[i] : 0) << (2 * (i - 4 * full)));
+      dst[full] = t;
+    }
   }
 }
 

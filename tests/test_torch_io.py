@@ -38,6 +38,56 @@ def test_pack_codes_2bit_matches_reference(L):
     np.testing.assert_array_equal(got, want)
 
 
+def _pack_route(route, monkeypatch):
+    """Send pack_codes_2bit down ``route``: "numpy" patches the host
+    library's loader to None, as on a machine without g++."""
+    from monica_tpu_torch.io import native
+
+    if route == "numpy":
+        monkeypatch.setattr(native, "load", lambda: None)
+    else:
+        assert native.available()
+    native.reset_counts()
+    return native
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+@pytest.mark.parametrize("B", [0, 1, 6])
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5, 37, 1023, 32768])
+def test_pack_codes_2bit_routes_match_reference(L, B, route, monkeypatch):
+    """Both routes give the JAX package's bytes on codes over the full
+    byte range: ACGT, N and PAD (4) and every byte above, which all map
+    to 0, and the zero-filled tail byte where L % 4 != 0."""
+    native = _pack_route(route, monkeypatch)
+    codes = np.random.default_rng(L * 10 + B).integers(0, 256, (B, L)).astype(np.uint8)
+    codes[:, ::3] = np.arange(L)[::3] % 6  # 0-3, N and 5 at every 3rd base
+    got = enc.pack_codes_2bit(codes)
+    assert native.PACKED == {"native": 0, "numpy": 0, route: 1}
+    want = ref_enc.pack_codes_2bit(codes)
+    assert got.dtype == want.dtype and got.shape == want.shape == (B, -(-L // 4))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_pack_codes_2bit_strided_input_and_out(route, monkeypatch):
+    """A non-contiguous view packs as its contiguous copy; ``out=`` is
+    written in place and returned; an ``out`` of the wrong shape or
+    dtype is refused before anything is written."""
+    native = _pack_route(route, monkeypatch)
+    base = np.random.default_rng(7).integers(0, 256, (12, 2 * 1027)).astype(np.uint8)
+    view = base[::2, 1::2]  # (6, 1027), neither rows nor bases contiguous
+    assert not view.flags.c_contiguous
+    want = ref_enc.pack_codes_2bit(np.ascontiguousarray(view))
+    np.testing.assert_array_equal(enc.pack_codes_2bit(view), want)
+    out = np.full((6, 257), 0xAB, np.uint8)
+    assert enc.pack_codes_2bit(view, out=out) is out
+    np.testing.assert_array_equal(out, want)
+    assert native.PACKED[route] == 2
+    for bad in (np.zeros((6, 256), np.uint8), np.zeros((6, 257), np.int16)):
+        with pytest.raises(ValueError):
+            enc.pack_codes_2bit(view, out=bad)
+
+
 @pytest.mark.parametrize("guard", [0, 32])
 def test_packed_seqs_builder_matches_reference(guard):
     rng = np.random.default_rng(guard)
@@ -252,9 +302,14 @@ def test_native_library_builds_into_the_port_build_dir(monkeypatch, tmp_path):
     path = native.library_path()
     assert path.parent == tmp_path / "b" and path.name.startswith("libmonica_io_")
     assert native.SRC.parent == Path(native.__file__).parent
-    assert native.SRC.read_bytes().split(b"#include <cstdint>")[1] == (
+    # the parser is the JAX package's source unchanged; the 2-bit pack,
+    # the port's own, comes last
+    port = native.SRC.read_bytes().split(b"#include <cstdint>")[1]
+    head, pack = port.split(b"// Pack (n_rows, row_len)")
+    assert head + b'}  // extern "C"\n' == (
         Path(ref_seq.__file__).parent / "native" / "fastq.cpp").read_bytes().split(
         b"#include <cstdint>")[1]
+    assert b"void pack_2bit(" in pack and pack.endswith(b'}  // extern "C"\n')
 
 
 def test_gut_community_and_nanopore_draws(tmp_path):

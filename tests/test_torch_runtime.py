@@ -372,3 +372,35 @@ def test_combined_fetch_equals_per_batch_fetch(index):
     for h, want in zip(handles, golden):
         for a, b in zip(port.fetch_packed(h), want):
             np.testing.assert_array_equal(a, b)
+
+
+def test_classify_counts_its_pack_route_and_both_routes_agree(index, monkeypatch):
+    """``Classifier.classify`` packs each batch natively where the host
+    library loads (``native.PACKED``, one a batch) and with numpy where
+    it does not; both routes give the same answers."""
+    _, port = _classifiers(index)
+    genomes = [np.frombuffer(g.encode(), np.uint8) for g in index["seqs"]]
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    rng = np.random.default_rng(61)
+    batches = []
+    for blen in (512, 1024, 2048):
+        codes = np.full((16, blen), 4, np.uint8)
+        lens = np.zeros(16, np.int32)
+        for i in range(16):
+            g = lut[genomes[int(rng.integers(0, 3))]]
+            s, n = int(rng.integers(0, len(g) - blen)), int(rng.integers(blen // 2, blen))
+            codes[i, :n], lens[i] = g[s : s + n], n
+            codes[i, rng.integers(0, n, 3)] = 4  # an N inside the read
+        batches.append((codes, lens))
+    runs = {}
+    for route in ("native", "numpy"):
+        if route == "numpy":
+            monkeypatch.setattr(native, "load", lambda: None)
+        native.reset_counts()
+        runs[route] = [port.fetch(*port.classify(c, n)) for c, n in batches]
+        assert native.PACKED == {"native": 0, "numpy": 0, route: len(batches)}
+    for got, want in zip(runs["native"], runs["numpy"]):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
