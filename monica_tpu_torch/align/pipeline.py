@@ -17,7 +17,9 @@ Each stage opens a ``utils.metrics.span`` (``monica.sketch``,
 ``monica.lookup``, ``monica.chain``, ``monica.rescue_pick``,
 ``monica.rescue``, ``monica.extend``, ``monica.merge``, ``monica.count``,
 ``monica.unpack``, ``monica.shard`` a shard of a grouped index), so a
-profile puts the host's time and the launches on a stage.
+profile puts the host's time and the launches on a stage; stacking a
+shard opens ``monica.stack.rows`` (the host's row rebuild) and
+``monica.stack.copy`` (its copies to the device).
 """
 
 from __future__ import annotations
@@ -90,9 +92,7 @@ def stack_device_shards(shards: list[IndexShard], device, tag_bits: int,
     into the stacked device tensors, so the host never holds the stack."""
     if not shards:
         raise ValueError("cannot stack an empty shard list")
-    dims_of = shards if dims_of is None else dims_of
-    T = max(len(s.ref_codes) for s in dims_of)
-    rbits = max(lk.row_bits_for(s.n_minimizers) for s in dims_of)
+    T, rbits = _stack_dims(shards if dims_of is None else dims_of)
     S = len(shards)
     out = DeviceIndexShard(
         mz_rows=torch.empty((S, 1 << rbits, lk.ROW_SLOTS), dtype=torch.int32, device=device),
@@ -100,18 +100,47 @@ def stack_device_shards(shards: list[IndexShard], device, tag_bits: int,
         ref_codes=torch.full((S, T), 4, dtype=torch.uint8, device=device),
     )
     for i, sh in enumerate(shards):
-        rows = lk.build_hash_rows(sh.mz_hash, sh.mz_pos, sh.mz_strand, tag_bits, rbits)
-        out.mz_rows[i].copy_(torch.from_numpy(rows.view(np.int32)))
-        n = len(sh.pos_accession_id)
-        out.pos_acc[i, :n].copy_(torch.from_numpy(np.asarray(sh.pos_accession_id, np.int32)))
-        out.ref_codes[i, : len(sh.ref_codes)].copy_(
-            torch.from_numpy(np.ascontiguousarray(sh.ref_codes, np.uint8)))
+        # one span each a shard: the host's row rebuild, then its copies
+        with span("stack.rows", shards=1):
+            rows = lk.build_hash_rows(sh.mz_hash, sh.mz_pos, sh.mz_strand, tag_bits, rbits)
+        pos = np.asarray(sh.pos_accession_id, np.int32)
+        ref = np.ascontiguousarray(sh.ref_codes, np.uint8)
+        with span("stack.copy", bytes=rows.nbytes + pos.nbytes + ref.nbytes):
+            out.mz_rows[i].copy_(torch.from_numpy(rows.view(np.int32)))
+            out.pos_acc[i, : len(pos)].copy_(torch.from_numpy(pos))
+            out.ref_codes[i, : len(ref)].copy_(torch.from_numpy(ref))
     return out
+
+
+def _stack_dims(shards: list[IndexShard]) -> tuple[int, int]:
+    """(padded reference length, row-index width) of a stack of ``shards``."""
+    return (max(len(s.ref_codes) for s in shards),
+            max(lk.row_bits_for(s.n_minimizers) for s in shards))
 
 
 def _size_class(n: int) -> int:
     """Power-of-2 size class for shard grouping."""
     return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def size_classes(shards: list[IndexShard]) -> list[list[IndexShard]]:
+    """The shards by power-of-2 size class of their packed reference,
+    in ascending class order (the groups a stacked index is made of)."""
+    by_class: dict[int, list[IndexShard]] = {}
+    for s in shards:
+        by_class.setdefault(_size_class(len(s.ref_codes)), []).append(s)
+    return [by_class[c] for c in sorted(by_class)]
+
+
+def stack_nbytes(classes: list[list[IndexShard]]) -> int:
+    """Device bytes that ``stack_device_shard_groups`` will allocate for
+    ``size_classes(shards)``, from the shards' sizes alone (the same sum
+    as ``stacked_nbytes`` of its result)."""
+    total = 0
+    for c in classes:
+        T, rbits = _stack_dims(c)
+        total += len(c) * ((1 << rbits) * lk.ROW_SLOTS * 4 + T * (4 + 1))
+    return total
 
 
 def stack_device_shard_groups(shards: list[IndexShard],
@@ -124,11 +153,7 @@ def stack_device_shard_groups(shards: list[IndexShard],
     if not shards:
         raise ValueError("cannot stack an empty shard list")
     tag_bits = lk.tag_bits_for(max(len(s.ref_codes) for s in shards))
-    by_class: dict[int, list[IndexShard]] = {}
-    for s in shards:
-        by_class.setdefault(_size_class(len(s.ref_codes)), []).append(s)
-    groups = tuple(stack_device_shards(by_class[c], device, tag_bits)
-                   for c in sorted(by_class))
+    groups = tuple(stack_device_shards(c, device, tag_bits) for c in size_classes(shards))
     return groups, tag_bits
 
 
@@ -164,14 +189,11 @@ def stack_mesh_shard_groups(
     if not shards:
         raise ValueError("cannot stack an empty shard list")
     tag_bits = lk.tag_bits_for(max(len(s.ref_codes) for s in shards))
-    by_class: dict[int, list[IndexShard]] = {}
-    for s in shards:
-        by_class.setdefault(_size_class(len(s.ref_codes)), []).append(s)
     groups = []
-    for c in sorted(by_class):
+    for members in size_classes(shards):
         ranks: list[list[IndexShard]] = [[] for _ in range(n_index)]
         loads = np.zeros(n_index, np.int64)
-        for s in sorted(by_class[c], key=lambda s: -len(s.ref_codes)):
+        for s in sorted(members, key=lambda s: -len(s.ref_codes)):
             r = int(np.argmin(loads))
             ranks[r].append(s)
             loads[r] += len(s.ref_codes)
@@ -480,8 +502,9 @@ def classify_groups(groups: tuple[DeviceIndexShard, ...], codes: torch.Tensor,
 def merge_and_count(hits: ShardHit, lengths: torch.Tensor, params: ClassifyParams,
                     n_accessions: int, count_mode: int = MODE_QUERY_LENGTH):
     """The (S, B) hits of a batch merged per read (``merge_hits``) and
-    counted: (ReadResult, (n_accessions,) counts)."""
-    with span("merge"):
+    counted: (ReadResult, (n_accessions,) counts).  The merge's span
+    counts the S shards it merges."""
+    with span("merge", shards=hits.acc_id.shape[0]):
         result = merge_hits(hits, params.tie_rel_tol, params.vote_tie_sd)
     with span("count"):
         return result, count_reads(result, lengths, n_accessions, count_mode)

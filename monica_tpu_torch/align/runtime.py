@@ -128,7 +128,12 @@ class Classifier:
         # a mesh's results are fetched from the device of its first local row
         self.device = (torch.device(device) if mesh is None
                        else mesh.row_device(mesh.local_rows()[0]))
-        with span("index_upload", shards=len(built.shards)):
+        counts = {"shards": len(built.shards)}
+        if mesh is None and len(built.shards) > 1:
+            # a stacked index: its size-class groups and device bytes
+            classes = pl.size_classes(built.shards)
+            counts.update(groups=len(classes), bytes=pl.stack_nbytes(classes))
+        with span("index_upload", **counts):
             if mesh is not None:
                 self.index, tag_bits = pm.shard_index(mesh, built.shards)
             elif len(built.shards) == 1 and built.device:

@@ -1,7 +1,8 @@
 """The port's trace spans (``utils.metrics.span``) on the CPU: where
 ``Classifier.classify`` and ``fetch`` open them and how they nest, the
-rescue tier's counts in their names, the answers unchanged under the
-profiler, and no ``record_function`` without one."""
+rescue tier's and the merge's counts in their names, the stacking's
+spans and counts in ``Classifier.__init__``, the answers unchanged under
+the profiler, and no ``record_function`` without one."""
 
 import numpy as np
 import pytest
@@ -26,7 +27,8 @@ N_GENOMES = 4
 def world():
     rng = np.random.default_rng(13)
     seqs = [rng.integers(0, 4, 40_000).astype(np.uint8) for _ in range(N_GENOMES)]
-    built = {n: build_index_from_arrays(seqs, n_shards=n, device="cpu") for n in (1, 2)}
+    # 3 shards of 80 and 40 kb (twice): two size-class groups
+    built = {n: build_index_from_arrays(seqs, n_shards=n, device="cpu") for n in (1, 2, 3)}
     # high error, so some reads fail the vote gate and go to the rescue
     B, L = 32, 512
     codes = np.full((B, L), 4, np.uint8)
@@ -88,7 +90,7 @@ def _rescue_tiers(clf, codes, lengths):
 
 
 @pytest.mark.parametrize("count_mode", ["query_length", "matching"])
-@pytest.mark.parametrize("n_shards", [1, 2])
+@pytest.mark.parametrize("n_shards", [1, 2, 3])
 def test_classify_and_fetch_open_their_spans(world, n_shards, count_mode):
     clf = rt.Classifier(world["built"][n_shards], count_mode=count_mode, device="cpu")
     codes, lengths = world["codes"], world["lengths"]
@@ -101,13 +103,13 @@ def test_classify_and_fetch_open_their_spans(world, n_shards, count_mode):
     parents = {}
     for name, parent in found:
         parents.setdefault(_base(name), set()).add(None if parent is None else _base(parent))
-    shard_or_pipeline = {"shard"} if n_shards == 2 else {"pipeline"}
+    shard_or_pipeline = {"shard"} if n_shards > 1 else {"pipeline"}
     want = {"classify": {None}, "pack": {"classify"}, "upload": {"classify"},
             "pipeline": {"classify"}, "unpack": {"pipeline"}, "sketch": {"pipeline"},
             "lookup": shard_or_pipeline, "chain": shard_or_pipeline,
             "merge": {"pipeline"}, "count": {"pipeline"},
             "fetch": {None}, "pack_results": {"fetch"}, "copy": {"fetch"}, "split": {"fetch"}}
-    if n_shards == 2:
+    if n_shards > 1:
         want["shard"] = {"pipeline"}
     if count_mode == "query_length":
         want["rescue_pick"] = shard_or_pipeline
@@ -119,6 +121,8 @@ def test_classify_and_fetch_open_their_spans(world, n_shards, count_mode):
     names = [n for n, _ in found]
     B, L = codes.shape
     assert f"monica.classify rows={B} len={L}" in names
+    assert [n for n in names if _base(n) == "merge"] == [
+        "monica.merge" if n_shards == 1 else f"monica.merge shards={n_shards}"]
     shards = sorted(n for n in names if _base(n) == "shard")
     assert shards == ([] if n_shards == 1 else
                       sorted(f"monica.shard group={g} shard={s}"
@@ -133,7 +137,7 @@ def test_classify_and_fetch_open_their_spans(world, n_shards, count_mode):
         assert names.count(f"monica.extend rows={B}") == n_shards
 
 
-@pytest.mark.parametrize("n_shards", [1, 2])
+@pytest.mark.parametrize("n_shards", [1, 2, 3])
 def test_no_profiler_no_record_function(world, monkeypatch, n_shards):
     clf = rt.Classifier(world["built"][n_shards], device="cpu")
     want = clf.fetch(*clf.classify(world["codes"], world["lengths"]))
@@ -142,6 +146,8 @@ def test_no_profiler_no_record_function(world, monkeypatch, n_shards):
         raise AssertionError("record_function entered without a profiler")
 
     monkeypatch.setattr(metrics, "record_function", refuse)
+    # the set-up's spans (index_upload, stack.rows, stack.copy) stay off too
+    clf = rt.Classifier(world["built"][n_shards], device="cpu")
     got = clf.fetch(*clf.classify(world["codes"], world["lengths"]))
     for a, b in zip(want, got):
         np.testing.assert_array_equal(a, b)
@@ -163,3 +169,43 @@ def test_span_names_carry_counts_and_stages_open_spans():
     assert names == {"monica.rescue cand=37 slots=187", "monica.stage.parse of=my_sample",
                      "monica.stage.bases"}
     assert m.summary()["parse:my sample"]["items"] == 3
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_stacking_counts_its_groups_bytes_and_shards(world, n_shards):
+    built = world["built"][n_shards]
+    plain = rt.Classifier(built, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        clf = rt.Classifier(built, device="cpu")
+    # the index and the answers do not change under the profiler
+    for g, h in zip(plain.index, clf.index):
+        for a, b in zip(g, h):
+            assert torch.equal(a, b)
+    for a, b in zip(plain.fetch(*plain.classify(world["codes"], world["lengths"])),
+                    clf.fetch(*clf.classify(world["codes"], world["lengths"]))):
+        np.testing.assert_array_equal(a, b)
+
+    spans = {}
+    for e in prof.events():
+        if metrics.is_span(e.name):
+            p = e.cpu_parent
+            while p is not None and not metrics.is_span(p.name):
+                p = p.cpu_parent
+            spans.setdefault(_base(e.name), []).append(
+                (dict(kv.split("=") for kv in e.name.split(" ")[1:]),
+                 None if p is None else _base(p.name)))
+    assert set(spans) == {"index_upload", "stack.rows", "stack.copy"}
+    # the groups and bytes recomputed from the stacked tensors themselves
+    assert spans["index_upload"] == [({"shards": str(len(built.shards)),
+                                       "groups": str(len(clf.index)),
+                                       "bytes": str(pl.stacked_nbytes(clf.index))}, None)]
+    assert len(clf.index) == n_shards - 1  # 3 shards: two size classes
+    rows, copies = spans["stack.rows"], spans["stack.copy"]
+    assert len(rows) == len(copies) == len(built.shards)
+    assert sum(int(c["shards"]) for c, _ in rows) == len(built.shards)
+    assert {p for _, p in rows + copies} == {"index_upload"}
+    # each shard's table at its group's width, its positions as int32, its codes
+    copied = sum(g.mz_rows[s].numel() * 4 + len(sh.pos_accession_id) * 4 + len(sh.ref_codes)
+                 for g, shards in zip(clf.index, pl.size_classes(built.shards))
+                 for s, sh in enumerate(shards))
+    assert sum(int(c["bytes"]) for c, _ in copies) == copied
