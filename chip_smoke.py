@@ -903,7 +903,7 @@ def stream(dev, seqs, built, clf, tmp: Path) -> dict:
         launch_shapes=json.dumps(shapes, separators=(",", ":")))
     check(acc >= MIN_ACCURACY, f"stream accuracy {acc:.4f} < {MIN_ACCURACY}")
 
-    # the rescue tier pick costs one host sync per shard and batch
+    # the rescue tier pick costs one host sync per size-class group and batch
     codes, labels = bench_reads(seqs, np.random.default_rng(SEED + 2), BATCH, READ_LEN, SUB_RATE)
     lengths = np.full(BATCH, READ_LEN, np.int32)
     hits = [run(clf, codes, lengths) for _ in range(2)][-1]  # warm

@@ -2,9 +2,11 @@
 ``monica_tpu/align/pipeline.py``: the single-shard step
 (``classify_shard``, ``finalize_single``, ``count_reads``,
 ``classify_batch``), the multi-shard step over size-class groups of
-stacked shards (``stack_device_shard_groups``, ``merge_hits``,
-``classify_batch_grouped``), their 2-bit packed entries and the packed
-result transfer (``pack_results``, ``concat_packed``).
+stacked shards (``stack_device_shard_groups``, ``classify_group``: one
+batched pass over a group's stacked shards, of which ``classify_shard``
+is the one-shard case; ``merge_hits``, ``classify_batch_grouped``),
+their 2-bit packed entries and the packed result transfer
+(``pack_results``, ``concat_packed``).
 
 A read batch moves sketch -> seed lookup -> diagonal vote chaining ->
 budgeted banded-SW rescue -> finalize (one shard) or cross-shard merge
@@ -16,7 +18,7 @@ device mesh (``monica_tpu_torch.parallel``).
 Each stage opens a ``utils.metrics.span`` (``monica.sketch``,
 ``monica.lookup``, ``monica.chain``, ``monica.rescue_pick``,
 ``monica.rescue``, ``monica.extend``, ``monica.merge``, ``monica.count``,
-``monica.unpack``, ``monica.shard`` a shard of a grouped index), so a
+``monica.unpack``, ``monica.shard`` a group of a grouped index), so a
 profile puts the host's time and the launches on a stage; stacking a
 shard opens ``monica.stack.rows`` (the host's row rebuild) and
 ``monica.stack.copy`` (its copies to the device).
@@ -271,19 +273,50 @@ def sketch_batch(codes: torch.Tensor, lengths: torch.Tensor, params: ClassifyPar
         return qh, qp, qs, qv
 
 
+# Widest lookup intermediate of one chunk of shards, in int64 entries
+# (S_chunk * B * n_slots * ROW_SLOTS; 512 MiB): a larger stack is looked
+# up and chained a chunk of shards at a time.
+LOOKUP_ENTRIES = 1 << 26
+# Window bases a banded-SW call extracts (rows * (L + band); 256 MiB of
+# each uint8 window tensor): a larger extension runs in several calls.
+SW_WINDOW_BASES = 1 << 28
+
+
 def classify_shard(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.Tensor,
                    params: ClassifyParams, sketch=None) -> ShardHit:
     """Best hit of every read against one shard; ``sketch`` is an
-    optional hoisted sketch_batch result."""
+    optional hoisted sketch_batch result.  The one-shard case of
+    ``classify_group``, on a stack of one."""
+    hit = classify_group(DeviceIndexShard(*(t[None] for t in index)), codes, lengths, params,
+                         sketch)
+    return ShardHit(*(f[0] for f in hit))
+
+
+def classify_group(group: DeviceIndexShard, codes: torch.Tensor, lengths: torch.Tensor,
+                   params: ClassifyParams, sketch=None) -> ShardHit:
+    """Best hit of every read against every shard of a stacked group
+    (``stack_device_shards``: (S, ...) tensors) in one batched pass: one
+    table gather over the stack, one chain over the S·B (shard, read)
+    rows, one rescue tier picked over that pool and one banded-SW call
+    on it.  Returns a ShardHit of (S, B) fields; row s is what shard s
+    alone gives, since every (shard, read) row is independent and the
+    tier always holds every candidate."""
     B, L = codes.shape
+    S = group.mz_rows.shape[0]
     qh, qp, qs, qv = sketch if sketch is not None else sketch_batch(codes, lengths, params)
-    with span("lookup"):
-        key, diag, rpos, fpos = lk.lookup_anchors(
-            index.mz_rows, qh, qp, qs, qv, tag_bits=params.tag_bits, bucket_len=L,
-            anchors_per_seed=params.anchors_per_seed,
-        )
-    with span("chain"):
-        res = ch.chain_votes(key, diag, rpos, fpos, max_run=min(128, params.n_slots))
+    per = max(1, LOOKUP_ENTRIES // (qh.numel() * lk.ROW_SLOTS))
+    chains = []
+    for s0 in range(0, S, per):
+        with span("lookup"):
+            anchors = lk.lookup_anchors(
+                group.mz_rows[s0 : s0 + per], qh, qp, qs, qv, tag_bits=params.tag_bits,
+                bucket_len=L, anchors_per_seed=params.anchors_per_seed,
+            )
+        with span("chain"):
+            chains.append(ch.chain_votes(*(a.reshape(-1, a.shape[-1]) for a in anchors),
+                                         max_run=min(128, params.n_slots)))
+    res = ch.ChainResult(*((f[0] if len(f) == 1 else torch.cat(f)).view(S, B)
+                           for f in zip(*chains)))
     mapq = ch.mapq_from_votes(res.f1, res.f2)
 
     # anchor-count identity estimate: votes/slots ~ id^k
@@ -297,60 +330,60 @@ def classify_shard(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.
 
     passed = (mapq >= params.mapping_quality) & (res.f1 >= params.min_votes) & (lengths > 0)
 
-    def extend(sel):  # banded SW of the selected reads at their chained locus
-        return ex.extend_hits(
-            index.ref_codes, codes[sel], lengths[sel], res.rep_ref_pos[sel],
-            res.rep_read_pos[sel], res.rc[sel], k=params.k,
-            p=ex.ExtendParams(band=params.band), impl=params.extend_impl,
-        )
-
     if params.extend and params.extend_mode == "full":
-        with span("extend", rows=B):
-            ext = extend(slice(None))
-        mlen = ext.mlen.to(torch.float32)
-        inv_identity = ext.inv_identity
+        with span("extend", rows=S * B):
+            ext = _extend_rows(group, codes, lengths.expand(S, B).reshape(-1), res, None,
+                               params)
+        mlen = ext.mlen.view(S, B).to(torch.float32)
+        inv_identity = ext.inv_identity.view(S, B)
         rescued = (
             (res.f1 >= params.rescue_min_votes)
             & (res.f2 * 2 <= res.f1)
-            & (ext.inv_identity <= params.rescue_nm_rate)
-            & (ext.mlen.to(torch.float32) >= params.rescue_min_cov * lf)
+            & (inv_identity <= params.rescue_nm_rate)
+            & (mlen >= params.rescue_min_cov * lf)
             & (lengths > 0)
         )
         passed = passed | rescued
     elif params.extend and params.extend_mode == "rescue":
-        # budgeted rescue: SW only on unique-locus reads that failed the
-        # vote gate, compacted into B/8, B/2 or B slots by the candidate
-        # count.  The reference picks the tier with nested lax.conds on
-        # the device; here int(n_cand) decides on the host, which costs
-        # one device->host sync per batch and shard.
+        # budgeted rescue: SW only on unique-locus (shard, read) rows that
+        # failed the vote gate, compacted into N/8, N/2 or N slots of the
+        # group's N = S·B rows by the candidate count.  The reference
+        # picks the tier with nested lax.conds on the device; here
+        # int(n_cand) decides on the host, which costs one device->host
+        # sync per batch and group.  A slot past the candidates runs its
+        # SW at length 0: its answer is masked out.
         cand = ~passed & (res.f1 >= params.rescue_min_votes) & (res.f2 * 2 <= res.f1) & (lengths > 0)
         with span("rescue_pick"):
             n_cand = int(cand.sum())
         if n_cand > 0:
-            n8 = max(int(B * params.rescue_frac), 1)
-            n2 = max(B // 2, 1)
-            n_slots = n8 if n_cand <= n8 else n2 if n_cand <= n2 else B
+            N = S * B
+            n8 = max(int(N * params.rescue_frac), 1)
+            n2 = max(N // 2, 1)
+            n_slots = n8 if n_cand <= n8 else n2 if n_cand <= n2 else N
             with span("rescue", cand=n_cand, slots=n_slots):
+                run_len = torch.where(cand, lengths, 0).reshape(-1)
+                cand = cand.reshape(-1)
                 order = torch.argsort(torch.where(cand, 0, 1), stable=True)
                 idx = order[:n_slots]
-                ext = extend(idx)
+                ext = _extend_rows(group, codes, run_len, res, idx, params)
                 ok = (
                     cand[idx]
                     & (ext.inv_identity <= params.rescue_nm_rate)
-                    & (ext.mlen.to(torch.float32) >= params.rescue_min_cov * lf[idx])
+                    & (ext.mlen.to(torch.float32)
+                       >= params.rescue_min_cov * run_len[idx].to(torch.float32))
                 )
-                rescued = torch.zeros_like(cand).index_put_((idx,), ok)
-                inv_sc = torch.zeros_like(inv_identity).index_put_(
-                    (idx,), torch.where(ok, ext.inv_identity, 0.0))
-                mlen_sc = torch.zeros_like(mlen).index_put_(
-                    (idx,), torch.where(ok, ext.mlen.to(mlen.dtype), 0.0))
+                rescued = torch.zeros_like(cand).index_put_((idx,), ok).view(S, B)
+                inv_sc = torch.zeros_like(inv_identity).view(-1).index_put_(
+                    (idx,), torch.where(ok, ext.inv_identity, 0.0)).view(S, B)
+                mlen_sc = torch.zeros_like(mlen).view(-1).index_put_(
+                    (idx,), torch.where(ok, ext.mlen.to(mlen.dtype), 0.0)).view(S, B)
                 passed = passed | rescued
                 inv_identity = torch.where(rescued, inv_sc, inv_identity)
                 mlen = torch.where(rescued, mlen_sc, mlen)
 
-    T = index.pos_acc.shape[0]
-    acc_id = index.pos_acc[torch.clamp(res.rep_ref_pos, 0, T - 1).long()]
-    acc2 = index.pos_acc[torch.clamp(res.rep2_ref_pos, 0, T - 1).long()]
+    T = group.pos_acc.shape[1]
+    acc_id = torch.gather(group.pos_acc, 1, torch.clamp(res.rep_ref_pos, 0, T - 1).long())
+    acc2 = torch.gather(group.pos_acc, 1, torch.clamp(res.rep2_ref_pos, 0, T - 1).long())
     tied = (res.f2 == res.f1) & (res.f1 >= params.min_votes) & (acc2 != acc_id) & (lengths > 0)
     return ShardHit(
         acc_id=acc_id.to(torch.int32),
@@ -364,6 +397,36 @@ def classify_shard(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.
         ref_pos=res.rep_ref_pos,
         tied=tied,
     )
+
+
+def _extend_rows(group: DeviceIndexShard, codes: torch.Tensor, run_len: torch.Tensor,
+                 res: ch.ChainResult, idx: torch.Tensor | None,
+                 params: ClassifyParams) -> ex.Extension:
+    """Banded SW of a group's (shard, read) rows at their chained locus
+    (``res``, (S, B) fields): ``idx`` indexes the rows flattened
+    shard-major (None: all S·B in order), ``run_len`` (S·B,) is the
+    length each row's SW runs to.  At most SW_WINDOW_BASES window bases
+    a call."""
+    S = group.ref_codes.shape[0]
+    B, L = codes.shape
+    n = S * B if idx is None else idx.shape[0]
+    step = max(1, SW_WINDOW_BASES // (L + params.band))
+    parts = []
+    for lo in range(0, n, step):
+        if idx is not None:
+            i = idx[lo : lo + step]
+        elif S == 1:
+            i = slice(lo, lo + step)
+        else:
+            i = torch.arange(lo, min(n, lo + step), device=codes.device)
+        read, shard, ref = (i, None, group.ref_codes[0]) if S == 1 else (
+            i % B, i // B, group.ref_codes)
+        parts.append(ex.extend_hits(
+            ref, codes[read], run_len[i], res.rep_ref_pos.reshape(-1)[i],
+            res.rep_read_pos.reshape(-1)[i], res.rc.reshape(-1)[i], k=params.k,
+            p=ex.ExtendParams(band=params.band), impl=params.extend_impl, shard=shard,
+        ))
+    return parts[0] if len(parts) == 1 else ex.Extension(*(torch.cat(f) for f in zip(*parts)))
 
 
 class ReadResult(NamedTuple):
@@ -484,19 +547,16 @@ def classify_batch_grouped(groups: tuple[DeviceIndexShard, ...], codes: torch.Te
 
 def classify_groups(groups: tuple[DeviceIndexShard, ...], codes: torch.Tensor,
                     lengths: torch.Tensor, params: ClassifyParams, sketch=None) -> ShardHit:
-    """Every shard of every size-class group in turn on a slice of its
-    group's stacked tensors, with one sketch (``sketch``, else computed
+    """Every size-class group in one batched pass each
+    (``classify_group``), with one sketch (``sketch``, else computed
     here): the hits as one ShardHit of (S, B) fields in group-then-shard
     order."""
     sk = sketch_batch(codes, lengths, params) if sketch is None else sketch
     hits = []
     for gi, g in enumerate(groups):
-        for s in range(g.mz_rows.shape[0]):
-            with span("shard", group=gi, shard=s):
-                hits.append(classify_shard(
-                    DeviceIndexShard(g.mz_rows[s], g.pos_acc[s], g.ref_codes[s]),
-                    codes, lengths, params, sketch=sk))
-    return ShardHit(*(torch.stack(f) for f in zip(*hits)))
+        with span("shard", group=gi, shards=g.mz_rows.shape[0]):
+            hits.append(classify_group(g, codes, lengths, params, sketch=sk))
+    return hits[0] if len(hits) == 1 else ShardHit(*(torch.cat(f) for f in zip(*hits)))
 
 
 def merge_and_count(hits: ShardHit, lengths: torch.Tensor, params: ClassifyParams,

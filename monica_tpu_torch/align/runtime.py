@@ -20,8 +20,8 @@ caller thread, fetch and routing on workers); samples above
 Everything runs on the device's default stream, which every thread
 shares, so a fetch on a worker thread is ordered after the work the
 caller thread queued.  The rescue tier pick costs one device->host sync
-per shard and batch (see ``pipeline.classify_shard``), so dispatch is
-not fully asynchronous as it is in the JAX package.
+per size-class group and batch (see ``pipeline.classify_group``), so
+dispatch is not fully asynchronous as it is in the JAX package.
 
 With a mesh that spans processes (``parallel.dist.multihost_init``),
 every process runs its own query and output folders, and the processes

@@ -54,14 +54,22 @@ def packed_mbits(L: int, p: ExtendParams) -> int:
 
 
 def extract_ref_windows(ref_codes: torch.Tensor, diag: torch.Tensor, L: int,
-                        band: int) -> torch.Tensor:
+                        band: int, shard: torch.Tensor | None = None) -> torch.Tensor:
     """refwin[b, p] = ref[diag[b] - band//2 + p], p in [0, L + band),
-    with the start clamped to [0, max(T - (L + band), 0)] as the
-    reference's CLIP gather does."""
-    T = ref_codes.shape[0]
-    start = torch.clamp(diag.to(torch.int64) - band // 2, 0, max(T - (L + band), 0))
-    offs = torch.arange(L + band, device=ref_codes.device)
-    return ref_codes[start[:, None] + offs[None, :]]
+    with the start clamped to [0, T - (L + band)] as the reference's
+    CLIP gather does (which needs T >= L + band).  With ``shard`` (B,)
+    int64, ``ref_codes`` is a (G, T) stack and row b reads shard
+    ``shard[b]``: its start is clamped within that shard, then offset by
+    ``shard[b] * T`` into the flattened stack (int64: a stack can exceed
+    2^31 bases).  The rows are gathered from the stack's overlapping
+    (L + band)-windows view, so no per-base index tensor is made."""
+    T = ref_codes.shape[-1]
+    if T < L + band:  # a window would run past its shard
+        raise ValueError(f"a reference of {T} bases holds no window of {L + band}")
+    start = torch.clamp(diag.to(torch.int64) - band // 2, 0, T - (L + band))
+    if shard is not None:
+        start = start + shard * T
+    return ref_codes.reshape(-1).unfold(0, L + band, 1)[start]
 
 
 # ---------------------------------------------------------------------------
@@ -194,12 +202,14 @@ class Extension(NamedTuple):
 
 
 def extend_hits(ref_codes, codes, lengths, rep_ref_pos, rep_read_pos, rc,
-                k: int, p: ExtendParams, impl: str = "auto") -> Extension:
+                k: int, p: ExtendParams, impl: str = "auto",
+                shard: torch.Tensor | None = None) -> Extension:
     """Banded extension of each read at its chained locus (reference
     ``extend_hits``).  The read is never reoriented: for rc anchors the
     reference window is taken on the anti-diagonal, flipped and
     complemented, so row i always pairs read base i with
-    window[i + band/2]."""
+    window[i + band/2].  ``shard``: each row's shard in a (G, T) stack
+    ``ref_codes`` (``extract_ref_windows``)."""
     B, L = codes.shape
     W = p.band
     i = torch.arange(L, device=codes.device)[None, :]
@@ -209,7 +219,7 @@ def extend_hits(ref_codes, codes, lengths, rep_ref_pos, rep_read_pos, rc,
     anti = rep_ref_pos + rep_read_pos + (k - 1)
     rc_start = anti - (L - 1) - W // 2
     start = torch.where(rc, rc_start, fwd_start)
-    refwin = extract_ref_windows(ref_codes, start + W // 2, L, W)
+    refwin = extract_ref_windows(ref_codes, start + W // 2, L, W, shard)
     flipped = torch.flip(refwin, dims=(-1,))
     comp = torch.where(flipped < 4, 3 - flipped, flipped).to(torch.uint8)
     refwin = torch.where(rc[:, None], comp, refwin).contiguous()

@@ -72,7 +72,7 @@ def build_hash_rows(
 
 
 def lookup_anchors(
-    mz_rows: torch.Tensor,  # (R, ROW_SLOTS) int32 bit pattern of u32 entries
+    mz_rows: torch.Tensor,  # ([G,] R, ROW_SLOTS) int32 bit pattern of u32 entries
     q_hash: torch.Tensor,  # (B, S) int64 u32-valued read minimizer hashes
     q_pos: torch.Tensor,  # (B, S) int32
     q_strand: torch.Tensor,  # (B, S) bool
@@ -84,7 +84,10 @@ def lookup_anchors(
     """Per-read anchors with packed chain keys; each output (B, S*A)
     int32 with A = anchors_per_seed (or ROW_SLOTS when 0):
     key (packed (strand, diag bin), INVALID_KEY when unused), diag,
-    read_pos, ref_pos.
+    read_pos, ref_pos.  A stack of tables (G, R, ROW_SLOTS) that share
+    ``tag_bits`` (``pipeline.stack_device_shards``) takes one gather for
+    all G and gives (G, B, S*A) outputs, each table's anchors as it
+    alone would give them.
 
     The verified-hits-first compaction sorts each row's entries
     descending AS UNSIGNED values: the tag sits in the top bits, so a
@@ -92,12 +95,12 @@ def lookup_anchors(
     the empty 0 slots and drop real hits.  The sort runs on the
     int64-held u32 values."""
     B, S = q_hash.shape
-    R = mz_rows.shape[0]
-    rbits = int(np.log2(R))
+    stack = mz_rows.shape[:-2]
+    rbits = int(np.log2(mz_rows.shape[-2]))
     payload_bits = 32 - tag_bits
 
     row = q_hash >> (32 - rbits)
-    e = u32(mz_rows[row])  # (B, S, ROW_SLOTS): the one gather per seed
+    e = u32(mz_rows[..., row, :])  # ([G,] B, S, ROW_SLOTS): the one gather per seed
 
     qtag = (q_hash & ((1 << tag_bits) - 1))[..., None]
     seed_ok = q_valid & (q_hash != INVALID_HASH)
@@ -119,10 +122,10 @@ def lookup_anchors(
     dbin = (diag + bucket_len) >> DIAG_SHIFT
     key = torch.where(hit_ok, (rc.to(torch.int32) << 24) | dbin, INVALID_KEY)
 
-    A = key.shape[-1]
+    shape = (*stack, B, S * key.shape[-1])
     return (
-        key.reshape(B, S * A),
-        diag.reshape(B, S * A),
-        rp.expand(rc.shape).reshape(B, S * A),
-        ref_pos.reshape(B, S * A),
+        key.reshape(shape),
+        diag.reshape(shape),
+        rp.expand(rc.shape).reshape(shape),
+        ref_pos.reshape(shape),
     )

@@ -61,31 +61,41 @@ def _base(name):
     return name.split(" ")[0][len(metrics.SPAN_PREFIX):]
 
 
+def _groups(clf):
+    """The index's size-class groups, each a list of its shards (a
+    one-shard index: one group of one)."""
+    if isinstance(clf.index, pl.DeviceIndexShard):
+        return [[clf.index]]
+    return [[pl.DeviceIndexShard(g.mz_rows[s], g.pos_acc[s], g.ref_codes[s])
+             for s in range(g.mz_rows.shape[0])] for g in clf.index]
+
+
 def _rescue_tiers(clf, codes, lengths):
-    """(candidates, slots) of each shard's rescue, recomputed from the
-    batch as the Classifier sends it (2-bit packed) with the pipeline's
-    gate and tier rule."""
+    """(candidates, slots) of each group's rescue, recomputed shard by
+    shard from the batch as the Classifier sends it (2-bit packed) with
+    the pipeline's gate, and the tier rule applied once to the pool of
+    the group's S·B (shard, read) rows."""
     B, L = codes.shape
     params = pl.params_for_bucket(clf.params, L)
     c = pl.unpack_codes(torch.from_numpy(enc.pack_codes_2bit(codes)), L)
     ln = torch.from_numpy(lengths)
-    shards = ([clf.index] if isinstance(clf.index, pl.DeviceIndexShard) else
-              [pl.DeviceIndexShard(g.mz_rows[s], g.pos_acc[s], g.ref_codes[s])
-               for g in clf.index for s in range(g.mz_rows.shape[0])])
     qh, qp, qs, qv = pl.sketch_batch(c, ln, params)
     out = []
-    for sh in shards:
-        anchors = lk.lookup_anchors(sh.mz_rows, qh, qp, qs, qv, tag_bits=params.tag_bits,
-                                    bucket_len=L, anchors_per_seed=params.anchors_per_seed)
-        res = ch.chain_votes(*anchors, max_run=min(128, params.n_slots))
-        passed = ((ch.mapq_from_votes(res.f1, res.f2) >= params.mapping_quality)
-                  & (res.f1 >= params.min_votes) & (ln > 0))
-        cand = (~passed & (res.f1 >= params.rescue_min_votes) & (res.f2 * 2 <= res.f1)
-                & (ln > 0))
-        n = int(cand.sum())
+    for shards in _groups(clf):
+        n = 0
+        for sh in shards:
+            anchors = lk.lookup_anchors(sh.mz_rows, qh, qp, qs, qv, tag_bits=params.tag_bits,
+                                        bucket_len=L, anchors_per_seed=params.anchors_per_seed)
+            res = ch.chain_votes(*anchors, max_run=min(128, params.n_slots))
+            passed = ((ch.mapq_from_votes(res.f1, res.f2) >= params.mapping_quality)
+                      & (res.f1 >= params.min_votes) & (ln > 0))
+            cand = (~passed & (res.f1 >= params.rescue_min_votes) & (res.f2 * 2 <= res.f1)
+                    & (ln > 0))
+            n += int(cand.sum())
         if n:
-            n8, n2 = max(int(B * params.rescue_frac), 1), max(B // 2, 1)
-            out.append((n, n8 if n <= n8 else n2 if n <= n2 else B))
+            N = len(shards) * B
+            n8, n2 = max(int(N * params.rescue_frac), 1), max(N // 2, 1)
+            out.append((n, n8 if n <= n8 else n2 if n <= n2 else N))
     return out
 
 
@@ -123,18 +133,19 @@ def test_classify_and_fetch_open_their_spans(world, n_shards, count_mode):
     assert f"monica.classify rows={B} len={L}" in names
     assert [n for n in names if _base(n) == "merge"] == [
         "monica.merge" if n_shards == 1 else f"monica.merge shards={n_shards}"]
+    # one span a size-class group, counting its shards
     shards = sorted(n for n in names if _base(n) == "shard")
     assert shards == ([] if n_shards == 1 else
-                      sorted(f"monica.shard group={g} shard={s}"
-                             for g, grp in enumerate(clf.index)
-                             for s in range(grp.mz_rows.shape[0])))
+                      sorted(f"monica.shard group={g} shards={len(grp)}"
+                             for g, grp in enumerate(_groups(clf))))
     rescues = [n for n in names if _base(n) == "rescue"]
     if count_mode == "query_length":
         tiers = _rescue_tiers(clf, codes, lengths)
         assert tiers, "the batch sends no read to the rescue"
         assert rescues == [f"monica.rescue cand={c} slots={s}" for c, s in tiers]
     else:
-        assert names.count(f"monica.extend rows={B}") == n_shards
+        assert sorted(n for n in names if _base(n) == "extend") == sorted(
+            f"monica.extend rows={len(grp) * B}" for grp in _groups(clf))
 
 
 @pytest.mark.parametrize("n_shards", [1, 2, 3])
