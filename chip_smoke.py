@@ -21,11 +21,11 @@ on the card at the main path's shapes, with its time beside its bound
   rates;
 * the cross-shard merge on random tie-rich hit stacks, the card held
   equal to the CPU (``[merge_agree]``);
-* the index build on the card (``[index]``: the 64 Mbase index built
-  wholly on the card, its table taken by the ``Classifier`` as it is),
-  held bit-equal to the host build, with no overflow route, and a
-  homopolymer reference that takes the counted overflow route
-  (``[build_agree]``);
+* the index build on the card (``[index]``: the 64 Mbase index sketched
+  and sorted on the card, the ``Classifier``'s one-shard stack filled
+  there bit-equal to the CPU fill of the same arrays), held bit-equal to
+  the host build, with no overflow route, and a homopolymer reference
+  that takes the counted overflow route (``[build_agree]``);
 * the multi-shard streaming runtime — a 300 Mbase, 5-shard gut index
   sketched and sorted on the card (``[gut_index]``) and ``run_once`` over
   a folder of 8 nanopore FASTQ samples of 1,500 reads of 300-40,000 bp,
@@ -117,7 +117,6 @@ import numpy as np
 import torch
 
 from monica_tpu_torch import bench, bench_sw, demo_watch, roofline_sw
-from monica_tpu_torch._u32 import u32
 from monica_tpu_torch.align import pipeline as pl
 from monica_tpu_torch.align import runtime as rt
 from monica_tpu_torch.evaluation import (bench_reads, gut_community, nanopore_lengths,
@@ -470,7 +469,7 @@ def stage_times(clf, codes, lengths) -> dict:
     fetch, each timed on its own: the host 2-bit pack, the two pinned
     uploads, the device pipeline, the fetch, and the whole call."""
     params = pl.params_for_bucket(clf.params, codes.shape[2])
-    t = {k: [] for k in ("pack", "upload_reads", "upload_lengths", "classify_batch",
+    t = {k: [] for k in ("pack", "upload_reads", "upload_lengths", "classify_step",
                          "fetch", "classify_and_fetch")}
     for batch in codes:
         t0 = time.perf_counter()
@@ -480,10 +479,10 @@ def stage_times(clf, codes, lengths) -> dict:
         t["upload_reads"].append(ms)
         dev_lens, ms = synced_ms(lambda: clf._upload(lengths))
         t["upload_lengths"].append(ms)
-        out, ms = synced_ms(lambda: pl.classify_batch_packed(
+        out, ms = synced_ms(lambda: pl.classify_batch_grouped_packed(
             clf.index, dev_packed, dev_lens, batch.shape[1], params,
             clf.meta.n_accessions, clf.count_mode))
-        t["classify_batch"].append(ms)
+        t["classify_step"].append(ms)
         t0 = time.perf_counter()
         clf.fetch(*out)
         t["fetch"].append((time.perf_counter() - t0) * 1e3)
@@ -547,16 +546,22 @@ def single_shard(dev):
     seqs = zymo_community(rng)
     built, build_s, build_mb = device_build(
         dev, lambda: build_index_from_arrays(seqs, n_shards=1, device=dev))
-    check(built.device is not None and ib.BUILD_ROUTES == {
-        "device_table": 1, "device_sketch_sort": 1, "overflow": 0},
-        f"the Zymo index did not build wholly on the card: {ib.BUILD_ROUTES}")
+    check(ib.BUILD_ROUTES == {"device_sketch_sort": 1, "overflow": 0},
+          f"the Zymo index was not sketched and sorted on the card: {ib.BUILD_ROUTES}")
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     clf = rt.Classifier(built, device=dev)
-    check(clf.index.mz_rows.data_ptr() == built.device[0][0].data_ptr(),
-          "the Classifier did not take the card's table")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    (group,) = clf.index
+    check(group.mz_rows.shape[0] == 1, f"one shard, a stack of {group.mz_rows.shape[0]}")
+    rbits = lk.row_bits_for(built.shards[0].n_minimizers)
+    check(torch.equal(group.mz_rows[0].cpu(), filled_table(built.shards[0], clf.params.tag_bits,
+                                                           rbits)),
+          "the Classifier's stack on the card differs from the CPU fill of the same arrays")
     say("index", mbase=f"{sum(map(len, seqs)) / 1e6:.1f}", shards=len(built.shards),
-        route="device_table", build_s=f"{build_s:.2f}", build_peak_mb=f"{build_mb:.0f}",
-        upload_s=f"{time.perf_counter() - t0:.2f}", table_rows=clf.index.mz_rows.shape[0],
+        route="device_sketch_sort", build_s=f"{build_s:.2f}", build_peak_mb=f"{build_mb:.0f}",
+        upload_s=f"{upload_s:.2f}", table_rows=group.mz_rows.shape[1], table_bit_equal=True,
         device_mb=f"{torch.cuda.memory_allocated() / 2**20:.0f}")
 
     codes, labels = bench_reads(seqs, rng, BATCH * N_BATCHES, READ_LEN, SUB_RATE)
@@ -634,43 +639,47 @@ def single_shard(dev):
     return launches, seqs, built, build_s
 
 
+def filled_table(shard, tag_bits: int, rbits: int, device="cpu") -> torch.Tensor:
+    """A shard's hash table filled by ``lookup.fill_hash_rows`` from its
+    host arrays on ``device``, fetched to the CPU."""
+    arrays = (shard.mz_hash.view(np.int32), shard.mz_pos, shard.mz_strand)
+    return lk.fill_hash_rows(*(torch.from_numpy(a).to(device) for a in arrays), tag_bits,
+                             rbits).cpu()
+
+
 def build_agree(dev, seqs, built, card_s) -> None:
     """[build_agree]: the Zymo index built on the host (device cpu) against
-    the card's build of [index]: the card's table bit-equal to
-    build_hash_rows over the host arrays with equal n_kept, and the
-    arrays LazyDeviceShard fetches equal to the host shard's.  Then a
-    homopolymer-rich reference overflows a segment's compaction capacity
-    on the card: the counted overflow route, and the host build's arrays."""
+    the card's build of [index]: the arrays the card sketched, sorted and
+    fetched equal to the host shard's, and the card's table fill of them
+    bit-equal to the CPU fill.  Then a homopolymer-rich reference
+    overflows a segment's compaction capacity on the card: the counted
+    overflow route, and the host build's arrays."""
     t0 = time.perf_counter()
     host = build_index_from_arrays(seqs, n_shards=1, device="cpu")
     host_s = time.perf_counter() - t0
     hs, ds = host.shards[0], built.shards[0]
-    table, tag_bits = built.device[0]
-    check(tag_bits == lk.tag_bits_for(len(hs.ref_codes)), "tag bits differ")
-    want = lk.build_hash_rows(hs.mz_hash, hs.mz_pos, hs.mz_strand, tag_bits)
-    check(np.array_equal(table.cpu().numpy().view(np.uint32), want),
-          "the card's table differs from build_hash_rows over the host arrays")
-    again, n_kept = ib._device_hash_table(u32(ds._h_dev), ds._ps_dev.long(), ds._total,
-                                          tag_bits, built.meta.occ_cap)
-    check(n_kept == hs.n_minimizers and torch.equal(again, table),
-          f"n_kept {n_kept} vs {hs.n_minimizers} host minimizers, or a second fill differs")
     for f in ("ref_codes", "seq_starts", "seq_lengths", "seq_accession_id", "mz_hash",
               "mz_pos", "mz_strand", "pos_accession_id"):
         a, b = getattr(ds, f), getattr(hs, f)
-        check(a.dtype == b.dtype and np.array_equal(a, b), f"LazyDeviceShard.{f} differs")
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"the card's {f} differs from the host's")
+    tag_bits = lk.tag_bits_for(len(hs.ref_codes))
+    rbits = lk.row_bits_for(hs.n_minimizers)
+    check(torch.equal(filled_table(ds, tag_bits, rbits, dev), filled_table(hs, tag_bits, rbits)),
+          "the card's table fill differs from the CPU fill")
 
     rng = np.random.default_rng(SEED + 5)
     homo = [np.concatenate([np.zeros(1 << 22, np.uint8),
                             rng.integers(0, 4, 200_000).astype(np.uint8)])]
     routed, _, _ = device_build(dev, lambda: build_index_from_arrays(homo, device=dev))
-    check(ib.BUILD_ROUTES == {"device_table": 0, "device_sketch_sort": 0, "overflow": 1}
-          and routed.device is None, f"homopolymer: routes {ib.BUILD_ROUTES}")
+    check(ib.BUILD_ROUTES == {"device_sketch_sort": 0, "overflow": 1},
+          f"homopolymer: routes {ib.BUILD_ROUTES}")
     ref = build_index_from_arrays(homo, device="cpu")
     for f in ("mz_hash", "mz_pos", "mz_strand", "pos_accession_id"):
         check(np.array_equal(getattr(routed.shards[0], f), getattr(ref.shards[0], f)),
               f"homopolymer: {f} differs from the host build")
-    say("build_agree", mbase=f"{len(hs.ref_codes) / 1e6:.1f}", n_kept=n_kept,
-        table_bit_equal=True, lazy_arrays_equal=True, overflow_routes=0,
+    say("build_agree", mbase=f"{len(hs.ref_codes) / 1e6:.1f}", n_kept=hs.n_minimizers,
+        table_bit_equal=True, arrays_equal=True, overflow_routes=0,
         host_build_s=f"{host_s:.2f}", card_build_s=f"{card_s:.2f}",
         homopolymer_route="overflow", homopolymer_equals_host=True)
 
@@ -712,7 +721,7 @@ def gut_index(dev):
     built, build_s, build_mb = device_build(
         dev, lambda: build_index_from_arrays(seqs, n_shards=GUT_SHARDS, device=dev))
     check(len(built.shards) == GUT_SHARDS, f"{len(built.shards)} shards, not {GUT_SHARDS}")
-    check(ib.BUILD_ROUTES == {"device_table": 0, "device_sketch_sort": GUT_SHARDS, "overflow": 0},
+    check(ib.BUILD_ROUTES == {"device_sketch_sort": GUT_SHARDS, "overflow": 0},
           f"gut: not every shard was sketched and sorted on the card: {ib.BUILD_ROUTES}")
     before = torch.cuda.memory_allocated()
     torch.cuda.synchronize()
@@ -1297,7 +1306,7 @@ def cli(dev, seqs, tmp: Path) -> dict:
     ib.reset_build_routes()
     rc, build_wall = run_cli(["build_index", *common, *groups], log)
     check(rc == 0, f"cli build_index exited {rc}")
-    check(ib.BUILD_ROUTES == {"device_table": 2, "device_sketch_sort": 2, "overflow": 0},
+    check(ib.BUILD_ROUTES == {"device_sketch_sort": 2, "overflow": 0},
           f"cli build_index: the G_ and F_ groups did not build on the card: {ib.BUILD_ROUTES}")
     indexes = artifact.list_indexes(root / "indexes", root)
     check(sorted(p.name[:2] for p in indexes) == ["F_", "G_"], f"cli indexes: {indexes}")
@@ -1319,7 +1328,7 @@ def cli(dev, seqs, tmp: Path) -> dict:
     check(any(k.startswith("load_index:G_") for k in stages)
           and any(k.startswith("load_index:F_") for k in stages)
           and not any(k.startswith("build_index:") for k in stages)
-          and ib.BUILD_ROUTES == {"device_table": 0, "device_sketch_sort": 0, "overflow": 0},
+          and ib.BUILD_ROUTES == {"device_sketch_sort": 0, "overflow": 0},
           f"cli: the analysis run did not load both cached indexes: {sorted(stages)}")
     correct = sum(truth[rec.seq] == rec.id for name in inputs
                   for rec in seqio.read_fastq(q / rt.MAPPED_DIR / name))

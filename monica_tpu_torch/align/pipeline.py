@@ -1,12 +1,12 @@
 """Classification pipeline on torch tensors — counterpart of
-``monica_tpu/align/pipeline.py``: the single-shard step
-(``classify_shard``, ``finalize_single``, ``count_reads``,
-``classify_batch``), the multi-shard step over size-class groups of
-stacked shards (``stack_device_shard_groups``, ``classify_group``: one
-batched pass over a group's stacked shards, of which ``classify_shard``
-is the one-shard case; ``merge_hits``, ``classify_batch_grouped``),
-their 2-bit packed entries and the packed result transfer
-(``pack_results``, ``concat_packed``).
+``monica_tpu/align/pipeline.py``.  Every index, one shard or many, is a
+tuple of size-class groups of stacked shards (``stack_device_shard_groups``;
+a one-shard index is one group of one), and one step classifies a batch
+against it (``classify_batch_grouped``, ``classify_batch_grouped_packed``
+on the 2-bit wire): ``classify_group``, one batched pass over a group's
+stacked shards, then ``merge_and_count`` (``finalize_single`` for one
+shard, ``merge_hits`` across several; ``count_reads``), and the packed
+result transfer (``pack_results``, ``concat_packed``).
 
 A read batch moves sketch -> seed lookup -> diagonal vote chaining ->
 budgeted banded-SW rescue -> finalize (one shard) or cross-shard merge
@@ -18,10 +18,10 @@ device mesh (``monica_tpu_torch.parallel``).
 Each stage opens a ``utils.metrics.span`` (``monica.sketch``,
 ``monica.lookup``, ``monica.chain``, ``monica.rescue_pick``,
 ``monica.rescue``, ``monica.extend``, ``monica.merge``, ``monica.count``,
-``monica.unpack``, ``monica.shard`` a group of a grouped index), so a
-profile puts the host's time and the launches on a stage; stacking a
-shard opens ``monica.stack.rows`` (the host's row rebuild) and
-``monica.stack.copy`` (its copies to the device).
+``monica.unpack``, ``monica.shard`` a group), so a profile puts the
+host's time and the launches on a stage; stacking a shard opens
+``monica.stack.copy`` (its arrays' copies to the device) and
+``monica.stack.fill`` (its hash table's fill there).
 """
 
 from __future__ import annotations
@@ -51,34 +51,11 @@ COUNT_MODES = {"basic": MODE_BASIC, "query_length": MODE_QUERY_LENGTH, "matching
 
 
 class DeviceIndexShard(NamedTuple):
-    """One index shard as device tensors."""
+    """A size-class group of S index shards stacked as device tensors."""
 
-    mz_rows: torch.Tensor  # (2^rbits, ROW_SLOTS) int32 bit pattern of u32 entries
-    pos_acc: torch.Tensor  # (T,) int32 position -> accession id
-    ref_codes: torch.Tensor  # (T,) uint8 packed reference
-
-
-def index_tensors(mz_rows: np.ndarray | torch.Tensor, pos_acc: np.ndarray,
-                  ref_codes: np.ndarray, device) -> DeviceIndexShard:
-    """numpy index arrays (uint32 table, uint16 pos_acc, uint8 codes)
-    -> device tensors (copies, so read-only inputs are fine); pos_acc is
-    widened to int32 on load.  A table already built as an int32 tensor
-    (the device build's) is used as it is, moved only if it lives on
-    another device."""
-    if not isinstance(mz_rows, torch.Tensor):
-        mz_rows = torch.from_numpy(np.array(mz_rows, dtype=np.uint32).view(np.int32))
-    return DeviceIndexShard(
-        mz_rows=mz_rows.to(device),
-        pos_acc=torch.from_numpy(np.array(pos_acc, dtype=np.int32)).to(device),
-        ref_codes=torch.from_numpy(np.array(ref_codes, dtype=np.uint8)).to(device),
-    )
-
-
-def device_shard(shard: IndexShard, device) -> tuple[DeviceIndexShard, int]:
-    """Device tensors + the tag width of this shard's table."""
-    tag_bits = lk.tag_bits_for(len(shard.ref_codes))
-    rows = lk.build_hash_rows(shard.mz_hash, shard.mz_pos, shard.mz_strand, tag_bits)
-    return index_tensors(rows, shard.pos_accession_id, shard.ref_codes, device), tag_bits
+    mz_rows: torch.Tensor  # (S, 2^rbits, ROW_SLOTS) int32 bit pattern of u32 entries
+    pos_acc: torch.Tensor  # (S, T) int32 position -> accession id
+    ref_codes: torch.Tensor  # (S, T) uint8 packed reference
 
 
 def stack_device_shards(shards: list[IndexShard], device, tag_bits: int,
@@ -90,8 +67,10 @@ def stack_device_shards(shards: list[IndexShard], device, tag_bits: int,
     (default: ``shards``) is the set whose widest table and longest
     reference fix the padded sizes.
     Table padding is all-zero rows (empty slots), ``pos_acc`` pads with
-    0 and ``ref_codes`` with PAD (4).  Each shard is copied straight
-    into the stacked device tensors, so the host never holds the stack."""
+    0 and ``ref_codes`` with PAD (4).  Each shard's sorted minimizer
+    arrays go to the device, where ``lookup.fill_hash_rows`` writes its
+    table into the stack; its positions and codes are copied straight
+    in, so the host never holds the stack."""
     if not shards:
         raise ValueError("cannot stack an empty shard list")
     T, rbits = _stack_dims(shards if dims_of is None else dims_of)
@@ -102,15 +81,18 @@ def stack_device_shards(shards: list[IndexShard], device, tag_bits: int,
         ref_codes=torch.full((S, T), 4, dtype=torch.uint8, device=device),
     )
     for i, sh in enumerate(shards):
-        # one span each a shard: the host's row rebuild, then its copies
-        with span("stack.rows", shards=1):
-            rows = lk.build_hash_rows(sh.mz_hash, sh.mz_pos, sh.mz_strand, tag_bits, rbits)
+        # one span each a shard: its copies, then its table's fill
+        mz = (np.ascontiguousarray(sh.mz_hash, np.uint32).view(np.int32),
+              np.ascontiguousarray(sh.mz_pos, np.int32),
+              np.ascontiguousarray(sh.mz_strand, np.uint8))
         pos = np.asarray(sh.pos_accession_id, np.int32)
         ref = np.ascontiguousarray(sh.ref_codes, np.uint8)
-        with span("stack.copy", bytes=rows.nbytes + pos.nbytes + ref.nbytes):
-            out.mz_rows[i].copy_(torch.from_numpy(rows.view(np.int32)))
+        with span("stack.copy", bytes=sum(a.nbytes for a in (*mz, pos, ref))):
+            mz = [torch.from_numpy(a).to(device) for a in mz]
             out.pos_acc[i, : len(pos)].copy_(torch.from_numpy(pos))
             out.ref_codes[i, : len(ref)].copy_(torch.from_numpy(ref))
+        with span("stack.fill", shards=1):
+            out.mz_rows[i].copy_(lk.fill_hash_rows(*mz, tag_bits, rbits))
     return out
 
 
@@ -227,7 +209,7 @@ class ClassifyParams(NamedTuple):
     n_slots: int = 128  # minimizer slots per read
     mapping_quality: float = 60.0
     min_votes: int = 3
-    tag_bits: int = 8  # packed-entry tag width (device_shard returns it)
+    tag_bits: int = 8  # packed-entry tag width (stack_device_shard_groups returns it)
     extend: bool = True  # banded-SW extension / rescue
     band: int = 64
     extend_impl: str = "auto"  # "cuda" | "torch" | "auto" (by tensor device)
@@ -280,16 +262,6 @@ LOOKUP_ENTRIES = 1 << 26
 # Window bases a banded-SW call extracts (rows * (L + band); 256 MiB of
 # each uint8 window tensor): a larger extension runs in several calls.
 SW_WINDOW_BASES = 1 << 28
-
-
-def classify_shard(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.Tensor,
-                   params: ClassifyParams, sketch=None) -> ShardHit:
-    """Best hit of every read against one shard; ``sketch`` is an
-    optional hoisted sketch_batch result.  The one-shard case of
-    ``classify_group``, on a stack of one."""
-    hit = classify_group(DeviceIndexShard(*(t[None] for t in index)), codes, lengths, params,
-                         sketch)
-    return ShardHit(*(f[0] for f in hit))
 
 
 def classify_group(group: DeviceIndexShard, codes: torch.Tensor, lengths: torch.Tensor,
@@ -524,23 +496,12 @@ def count_reads(result: ReadResult, lengths: torch.Tensor, n_accessions: int,
     return counts[:n_accessions]
 
 
-def classify_batch(index: DeviceIndexShard, codes: torch.Tensor, lengths: torch.Tensor,
-                   params: ClassifyParams, n_accessions: int,
-                   count_mode: int = MODE_QUERY_LENGTH):
-    """Single-shard end-to-end step: reads -> (ReadResult, counts)."""
-    hit = classify_shard(index, codes, lengths, params)
-    with span("merge"):
-        result = finalize_single(hit)
-    with span("count"):
-        return result, count_reads(result, lengths, n_accessions, count_mode)
-
-
 def classify_batch_grouped(groups: tuple[DeviceIndexShard, ...], codes: torch.Tensor,
                            lengths: torch.Tensor, params: ClassifyParams, n_accessions: int,
                            count_mode: int = MODE_QUERY_LENGTH):
-    """Multi-shard step over size-class groups (stack_device_shard_groups):
-    ``classify_groups``, then ``merge_and_count``.  A single-shard index
-    goes through classify_batch instead."""
+    """The step over an index's size-class groups
+    (stack_device_shard_groups): ``classify_groups``, then
+    ``merge_and_count``."""
     return merge_and_count(classify_groups(groups, codes, lengths, params), lengths, params,
                            n_accessions, count_mode)
 
@@ -561,11 +522,15 @@ def classify_groups(groups: tuple[DeviceIndexShard, ...], codes: torch.Tensor,
 
 def merge_and_count(hits: ShardHit, lengths: torch.Tensor, params: ClassifyParams,
                     n_accessions: int, count_mode: int = MODE_QUERY_LENGTH):
-    """The (S, B) hits of a batch merged per read (``merge_hits``) and
-    counted: (ReadResult, (n_accessions,) counts).  The merge's span
+    """The (S, B) hits of a batch merged per read and counted:
+    (ReadResult, (n_accessions,) counts).  One shard's hits are final
+    (``finalize_single``, what ``merge_hits`` gives at S = 1 in fewer
+    launches); several go through ``merge_hits``.  The merge's span
     counts the S shards it merges."""
-    with span("merge", shards=hits.acc_id.shape[0]):
-        result = merge_hits(hits, params.tie_rel_tol, params.vote_tie_sd)
+    S = hits.acc_id.shape[0]
+    with span("merge", shards=S):
+        result = (finalize_single(ShardHit(*(f[0] for f in hits))) if S == 1
+                  else merge_hits(hits, params.tie_rel_tol, params.vote_tie_sd))
     with span("count"):
         return result, count_reads(result, lengths, n_accessions, count_mode)
 
@@ -578,13 +543,6 @@ def unpack_codes(packed: torch.Tensor, read_len: int) -> torch.Tensor:
         shifts = torch.arange(4, dtype=torch.uint8, device=packed.device) * 2
         c = (packed[:, :, None] >> shifts[None, None, :]) & 3
         return c.reshape(B, P * 4)[:, :read_len].contiguous()
-
-
-def classify_batch_packed(index, packed, lengths, read_len, params, n_accessions,
-                          count_mode=MODE_QUERY_LENGTH):
-    """classify_batch on 2-bit packed wire input."""
-    return classify_batch(index, unpack_codes(packed, read_len), lengths, params,
-                          n_accessions, count_mode)
 
 
 def classify_batch_grouped_packed(groups, packed, lengths, read_len, params, n_accessions,

@@ -1,6 +1,6 @@
 """Classification runtime — counterpart of ``monica_tpu/align/runtime.py``:
-the ``Classifier`` (a single-shard or multi-shard index on one device,
-or any shard count on a device mesh) and the streaming runtime.
+the ``Classifier`` (an index of any shard count, stacked by size class
+on one device or dealt over a device mesh) and the streaming runtime.
 
 * scan the query folder for non-empty ``*.fastq`` samples, consume and
   DELETE each after processing, so re-invoking a pass is idempotent;
@@ -98,10 +98,9 @@ class RouteFolders:
 class Classifier:
     """Device-resident index + the classify step.
 
-    On one device (``device``): a one-shard index is classified unstacked
-    (``classify_batch``); a multi-shard index is stacked by size class
-    (``stack_device_shard_groups``) and classified by
-    ``classify_batch_grouped``.  On a mesh (``mesh``, a
+    On one device (``device``): the index, of one shard or many, is
+    stacked by size class (``stack_device_shard_groups``) and classified
+    by ``classify_batch_grouped_packed``.  On a mesh (``mesh``, a
     :class:`parallel.mesh.Mesh`): any number of shards is dealt over the
     index axis (``stack_mesh_shard_groups``) and each batch's rows over
     the data axis (``parallel.dist.make_sharded_classifier``).  One of
@@ -129,23 +128,13 @@ class Classifier:
         self.device = (torch.device(device) if mesh is None
                        else mesh.row_device(mesh.local_rows()[0]))
         counts = {"shards": len(built.shards)}
-        if mesh is None and len(built.shards) > 1:
-            # a stacked index: its size-class groups and device bytes
+        if mesh is None:
+            # the stacked index: its size-class groups and device bytes
             classes = pl.size_classes(built.shards)
             counts.update(groups=len(classes), bytes=pl.stack_nbytes(classes))
         with span("index_upload", **counts):
             if mesh is not None:
                 self.index, tag_bits = pm.shard_index(mesh, built.shards)
-            elif len(built.shards) == 1 and built.device:
-                # a one-shard build on the card: its hash table is used as
-                # it is; only the per-position accession ids and the codes
-                # are uploaded
-                table, tag_bits = built.device[0]
-                sh = built.shards[0]
-                self.index = pl.index_tensors(table, sh.pos_accession_id, sh.ref_codes,
-                                              self.device)
-            elif len(built.shards) == 1:
-                self.index, tag_bits = pl.device_shard(built.shards[0], self.device)
             else:
                 self.index, tag_bits = pl.stack_device_shard_groups(built.shards, self.device)
         self.params = params._replace(
@@ -184,16 +173,14 @@ class Classifier:
                 reads = pm.shard_reads(self.mesh, codes, lengths)
                 with span("pipeline"):
                     return step(reads)
-            step = (pl.classify_batch_packed if isinstance(self.index, pl.DeviceIndexShard)
-                    else pl.classify_batch_grouped_packed)
             with span("pack"):
                 packed = self._pack(codes)
             with span("upload"):
                 packed = packed.to(self.device, non_blocking=True)
                 lengths = self._upload(np.asarray(lengths, dtype=np.int32))
             with span("pipeline"):
-                return step(self.index, packed, lengths, L, params, self.meta.n_accessions,
-                            self.count_mode)
+                return pl.classify_batch_grouped_packed(self.index, packed, lengths, L, params,
+                                                        self.meta.n_accessions, self.count_mode)
 
     def fetch(self, res, counts):
         """Blocking device->host fetch of one classified batch, for THIS

@@ -5,8 +5,8 @@ the device pipeline alone, at a realistic index size.
 Workload, seeds and sizes are ``bench.py``'s: seed 3; the Zymo community
 (``evaluation.zymo_community``: 8 × 5 Mb + 2 × 12 Mb = 64 Mbase) in one
 shard; ``--small`` 5 × 1 Mb in one shard; ``--gut`` 200 × 1.5 Mb =
-300 Mbase in 5 shards, stacked by size class and classified by
-``classify_batch_grouped``.  Reads: 16 batches of 2048 × 1,024 bp at 5%
+300 Mbase in 5 shards; every index stacked by size class and classified
+by ``classify_batch_grouped``.  Reads: 16 batches of 2048 × 1,024 bp at 5%
 substitutions (``evaluation.bench_reads``, ``bench.make_reads``'s
 draws).  ``--no-extend`` runs the vote-only pipeline, ``--anchors N``
 overrides ``anchors_per_seed``.  The index is built on ``--device``
@@ -16,18 +16,18 @@ back to the CPU).
 The window.  ``bench.py`` times one ``lax.scan`` dispatch over 16
 device-resident batches that ends with one host fetch.  Here the 16
 batches of raw codes (32 MiB) and their lengths are uploaded once,
-before the window; inside it a Python loop calls ``classify_batch`` (or
-``classify_batch_grouped``) in ``query_length`` mode with
+before the window; inside it a Python loop calls
+``classify_batch_grouped`` in ``query_length`` mode with
 ``params_for_bucket``'s params on each resident batch, sums the counts on
 the device and keeps every batch's full ``ReadResult`` referenced; the
 window ends with ``torch.cuda.synchronize()`` and one fetch of every
 status.  The host 2-bit pack and the upload of ``Classifier.classify``
 are outside it (``chip_smoke.py``'s ``[bench]`` line times them: a
 different number).  The loop is not one dispatch: each batch is
-hundreds of eager launches a shard and the rescue tier's host sync
+hundreds of eager launches and the rescue tier's host sync
 (``align/pipeline.py``, ``int(cand.sum())``), which fires once a batch
-and shard even when no read is a candidate; the stderr line counts the
-syncs.  1 warm-up, then 5 timed reps; the value is their median.
+and size-class group even when no read is a candidate; the stderr line
+counts the syncs.  1 warm-up, then 5 timed reps; the value is their median.
 
 Prints the card's name and power limit (``nvidia-smi``), then ONE JSON
 line with ``bench.py``'s keys; a stderr line carries ``bench.py``'s
@@ -219,35 +219,25 @@ def genomes(mode: str, rng: np.random.Generator, scale: float = 1.0):
 
 def prepare(built, device, extend: bool = True, anchors: int | None = None,
             read_len: int = READ_LEN):
-    """``bench.py``'s dispatch: one shard unstacked (``classify_batch``,
-    the card-built table taken as it is), several stacked by size class
-    (``classify_batch_grouped``).  Returns (step, index, params,
-    n_accessions)."""
-    if len(built.shards) == 1:
-        if built.device:
-            table, steps = built.device[0]
-            sh = built.shards[0]
-            index = pl.index_tensors(table, sh.pos_accession_id, sh.ref_codes, device)
-        else:
-            index, steps = pl.device_shard(built.shards[0], device)
-        step = pl.classify_batch
-    else:
-        index, steps = pl.stack_device_shard_groups(built.shards, device)
-        step = pl.classify_batch_grouped
+    """The index stacked by size class (one shard is one group of one)
+    and ``bench.py``'s params.  Returns (index, params, n_accessions)."""
+    index, steps = pl.stack_device_shard_groups(built.shards, device)
     params = pl.params_for_bucket(pl.ClassifyParams(tag_bits=steps, extend=extend), read_len)
     if anchors is not None:
         params = params._replace(anchors_per_seed=anchors)
-    return step, index, params, built.meta.n_accessions
+    return index, params, built.meta.n_accessions
 
 
-def run_all(step, index, params, n_acc, codes: torch.Tensor, lengths: torch.Tensor,
+def run_all(index, params, n_acc, codes: torch.Tensor, lengths: torch.Tensor,
             reps: int, warmup: int = 1):
     """The timed loop of ``bench.py``: (seconds a rep, summed counts, the
-    last rep's ReadResults, their statuses fetched as one (R, B) array)."""
+    last rep's ReadResults, their statuses fetched as one (R, B) array),
+    each batch through ``classify_batch_grouped``."""
     dev = codes.device
 
     def body(total, c, l):  # run_all's scan body: counts summed, the full ReadResult kept
-        res, counts = step(index, c, l, params, n_acc, pl.MODE_QUERY_LENGTH)
+        res, counts = pl.classify_batch_grouped(index, c, l, params, n_acc,
+                                                pl.MODE_QUERY_LENGTH)
         return total + counts, res
 
     dts, (total, results, statuses) = resident_runner(
@@ -280,18 +270,18 @@ def main(argv=None) -> int:
     seqs, n_shards = genomes("small" if args.small else "gut" if args.gut else "zymo", rng,
                              sizes["scale"])
     built = build_index_from_arrays(seqs, n_shards=n_shards, device=dev)
-    step, index, params, n_acc = prepare(built, dev, args.extend, args.anchors)
+    index, params, n_acc = prepare(built, dev, args.extend, args.anchors)
     sync(dev)
     build_s = time.time() - t0
 
     n = batch * n_batches
     codes = make_reads(seqs, rng, n).reshape(n_batches, batch, READ_LEN)
     cd, ld = resident(codes, np.full((n_batches, batch), READ_LEN, np.int32), dev)
-    syncs = host_syncs(lambda: step(index, cd[0], ld[0], params, n_acc, pl.MODE_QUERY_LENGTH),
-                       dev)
+    syncs = host_syncs(lambda: pl.classify_batch_grouped(index, cd[0], ld[0], params, n_acc,
+                                                         pl.MODE_QUERY_LENGTH), dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    dts, _total, _results, statuses = run_all(step, index, params, n_acc, cd, ld, sizes["reps"])
+    dts, _total, _results, statuses = run_all(index, params, n_acc, cd, ld, sizes["reps"])
     peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f}" if dev.type == "cuda"
             else "not measured")
 

@@ -38,17 +38,11 @@ def built_from_reference(ref_built) -> BuiltIndex:
     return BuiltIndex(meta=meta, shards=shards)
 
 
-def device_shard_from_reference(mz_rows, pos_acc, ref_codes, device) -> pl.DeviceIndexShard:
-    """The three arrays of a reference ``DeviceIndexShard`` (uint32
-    table, uint16 pos_acc, uint8 codes) -> the port's on ``device``."""
-    return pl.index_tensors(np.asarray(mz_rows), np.asarray(pos_acc),
-                            np.asarray(ref_codes), device)
-
-
 def groups_from_reference(ref_groups, device) -> tuple[pl.DeviceIndexShard, ...]:
     """The reference's stacked size-class groups (``stack_device_shard_groups``:
     uint32 tables, uint16 pos_acc, uint8 codes, each with a leading shard
-    axis) -> the port's stacked groups on ``device``."""
+    axis; a one-shard ``device_shard`` is a group of one once its arrays
+    take that axis) -> the port's stacked groups on ``device``."""
     return tuple(
         pl.DeviceIndexShard(
             mz_rows=torch.from_numpy(np.array(g.mz_rows, dtype=np.uint32).view(np.int32)).to(device),

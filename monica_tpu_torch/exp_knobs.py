@@ -5,8 +5,8 @@ As the JAX script: 5 × 1 Mb random genomes (seed 0), 8 distinct resident
 batches of 2048 × 1,024 bp reads drawn from them (seed 3, 5%
 substitutions); the index built on ``--device`` at ``frac`` 1.0 and
 0.5, and for each, ``n_slots`` S in (128, 96, 64) × ``extend`` in
-(False, True) through ``classify_shard``.  Each grid point runs through
-``bench.time_scalar`` (uploaded once, 1 warm-up, then the median of
+(False, True) through ``classify_group`` on the one-shard group.  Each
+grid point runs through ``bench.time_scalar`` (uploaded once, 1 warm-up, then the median of
 5 reps where the JAX script timed one), its first output (``acc_id``)
 summed into a live scalar as the JAX script sums it.  Accuracy of a
 candidate default is ``concordance``'s to judge, not this grid's.
@@ -63,13 +63,13 @@ def main(argv=None) -> int:
 
     for frac in (1.0, 0.5):
         built = build_index_from_arrays(seqs, frac=frac, device=dev)
-        _, index, base, _ = bench.prepare(built, dev)
-        print(f"--- frac={frac} rows={index.mz_rows.shape[0]:,}x{index.mz_rows.shape[1]}",
+        index, base, _ = bench.prepare(built, dev)
+        print(f"--- frac={frac} rows={index[0].mz_rows.shape[1]:,}x{index[0].mz_rows.shape[2]}",
               flush=True)
         for S, ext in GRID:
             p = pl.ClassifyParams(n_slots=S, tag_bits=base.tag_bits, frac=frac, extend=ext)
             dts, _ = bench.time_scalar(  # the first output (acc_id) kept live, as the JAX script
-                lambda c, l, p=p: pl.classify_shard(index, c, l, p).acc_id.float().sum(),
+                lambda c, l, p=p: pl.classify_group(index[0], c, l, p).acc_id.float().sum(),
                 cd, ld, sizes["reps"])
             ms = float(np.median(dts)) / n_batches * 1000.0
             print(f"{f'S={S} frac={frac} ext={int(ext)}':34s}: {ms:7.2f} ms/batch  "

@@ -43,8 +43,7 @@ _SHARD_FIELDS = (
 def save_index(index: BuiltIndex, folder: str | os.PathLike) -> Path:
     """Write ``index`` to ``folder`` (v2: one .npy per shard array, then
     the manifest flip, then the removal of files the manifest does not
-    name).  A shard built on the card brings its arrays to the host
-    here."""
+    name)."""
     folder = Path(folder)
     folder.mkdir(parents=True, exist_ok=True)
     meta = index.meta

@@ -5,21 +5,20 @@ separated by N guards), sketched with the port's own sketch
 (:mod:`monica_tpu_torch.index.minimizer`), hash-sorted, filtered by the
 occurrence cap and attributed per position to an accession id.
 
-Where the build runs follows its explicit ``device``:
-
-* on a CPU device, the host build: a chunked sketch and a stable
-  argsort, one thread per shard of a multi-shard build;
-* on a CUDA device, a one-shard build runs wholly on the card — sketch,
-  2-key sort, occurrence filter and hash-table fill
-  (:func:`_build_shard_device`) — and hands the table to the
-  ``Classifier`` as ``BuiltIndex.device``; in a multi-shard build each
-  shard of at least 2^21 bases is sketched and sorted on the card and
-  the rest of its build stays on the host.
+Every build, of any shard count on any device, gives host
+``IndexShard`` arrays sorted by (hash, pos) and occurrence-filtered:
+what artifacts save and load, and what the ``Classifier`` fills its
+hash tables on the device from (``lookup.fill_hash_rows``).  On a CUDA
+device each shard of at least 2^21 bases is sketched, sorted and
+occurrence-filtered on the card and fetched; the rest of the build, and
+every shard on a CPU device, runs on the host (a chunked sketch, a
+stable argsort and the same filter on CPU tensors).  A multi-shard
+build takes one thread per shard.
 
 Both routes give bit-identical arrays.  As in the reference, a segment
 whose selected minimizers overflow the compaction capacity (a
-homopolymer-rich reference) sends its shard down the host route; that
-route is counted in :data:`BUILD_ROUTES`.  Under a profiler the phases
+homopolymer-rich reference) sends its shard down the host route; the
+routes are counted in :data:`BUILD_ROUTES`.  Under a profiler the phases
 show as ``monica.build.*`` spans (``utils.metrics.span``).
 """
 
@@ -58,10 +57,9 @@ _DEV_CAP_SHIFT = 2
 _DEV_MIN_SHARD = 1 << 21
 _PAD = MASK32  # (hash, pos<<1|strand) of a pad entry: sorts after every real one
 
-# device-build routes taken in this process: one-shard builds wholly on
-# the card, shards sketched and sorted on the card, and shards sent to
-# the host by a segment's capacity overflow
-BUILD_ROUTES = {"device_table": 0, "device_sketch_sort": 0, "overflow": 0}
+# device-build routes taken in this process: shards sketched and sorted
+# on the card, and shards sent to the host by a segment's capacity overflow
+BUILD_ROUTES = {"device_sketch_sort": 0, "overflow": 0}
 _routes_lock = threading.Lock()
 
 
@@ -114,9 +112,6 @@ class IndexShard:
 class BuiltIndex:
     meta: IndexMeta
     shards: list[IndexShard]
-    # a one-shard build on the card: [(mz_rows int32 table on the card,
-    # tag_bits)], which the Classifier uses as it is; None otherwise
-    device: list | None = None
 
 
 def _check_device(device) -> torch.device:
@@ -163,7 +158,7 @@ def sketch_long_sequence(
 
 
 # ---------------------------------------------------------------------------
-# the build on the device: sketch, 2-key sort, occurrence filter, table fill
+# the build on the device: sketch and 2-key sort
 # ---------------------------------------------------------------------------
 
 def _sketch_segment(chunk: torch.Tensor, start_in_chunk: int, own_len: int, base: int,
@@ -199,20 +194,19 @@ def _sort2(h: torch.Tensor, ps: torch.Tensor):
     return (key >> 32) + (1 << 31), key & MASK32
 
 
-def _device_sketch_sort_arrays(codes: np.ndarray, k: int, w: int, frac: float, device):
-    """Sketch and sort one packed reference on ``device``: (h_sorted,
-    ps_sorted, total) int64 tensors there, sorted by (hash, pos), with
-    the pads (0xFFFFFFFF, 0xFFFFFFFF) last; or None when the reference
-    is shorter than k or a segment overflows its compaction capacity
-    (counted in BUILD_ROUTES["overflow"]).
+def _device_sketch_sort(codes: np.ndarray, k: int, w: int, frac: float, device):
+    """Sketch and sort one packed reference of at least k bases on
+    ``device``: (hash as int32 bit patterns, pos int64, strand uint8)
+    tensors there, sorted by (hash, pos) as the host sketch and a stable
+    argsort give them; or None when a segment overflows its compaction
+    capacity (counted in BUILD_ROUTES["overflow"]).
 
     Each segment of _DEV_SEG bases, extended by 2w + k on both sides and
     padded with N to one length, is sketched and compacted to seg >> 2
-    slots; the segments concatenate and one sort orders the pairs.  The
-    per-segment counts come back to the host in one transfer."""
+    slots; the segments concatenate and one sort orders the pairs, the
+    pads last, after the real entries.  The per-segment counts come back
+    to the host in one transfer."""
     n = len(codes)
-    if n < k:
-        return None
     seg = _DEV_SEG
     cap = seg >> _DEV_CAP_SHIFT
     overlap = 2 * w + k
@@ -235,135 +229,25 @@ def _device_sketch_sort_arrays(codes: np.ndarray, k: int, w: int, frac: float, d
         return None
     h_sorted, ps_sorted = _sort2(torch.cat(parts_h), torch.cat(parts_ps))
     _count_route("device_sketch_sort")
-    return h_sorted, ps_sorted, sum(counts)
+    total = sum(counts)
+    ps = ps_sorted[:total]
+    return i32_bits(h_sorted[:total]), ps >> 1, (ps & 1).to(torch.uint8)
 
 
-def _device_sketch_sort(codes: np.ndarray, k: int, w: int, frac: float, device):
-    """:func:`_device_sketch_sort_arrays` fetched to the host: (hash
-    uint32, pos int64, strand uint8) sorted by (hash, pos) — what the
-    host sketch and a stable argsort give — or None (see there)."""
-    if len(codes) < k:
-        e = np.zeros(0)
-        return e.astype(np.uint32), e.astype(np.int64), e.astype(np.uint8)
-    got = _device_sketch_sort_arrays(codes, k, w, frac, device)
-    if got is None:
-        return None
-    h_sorted, ps_sorted, total = got
-    h = h_sorted[:total].cpu().numpy()
-    ps = ps_sorted[:total].cpu().numpy()
-    return h.astype(np.uint32), ps >> 1, (ps & 1).astype(np.uint8)
-
-
-def _kept_count(h: torch.Tensor, ps: torch.Tensor, total: int, occ_cap: int):
-    """Keep-mask of the occurrence filter over the sorted arrays, and its
-    count on the device.  Equal-hash runs longer than occ_cap are
-    dropped whole (occ_cap 0 keeps every entry); run boundaries break
-    on a validity change as well as on a hash change, so the pads never
-    lengthen the run of a real entry whose hash is 0xFFFFFFFF."""
-    N = h.shape[0]
-    idx = torch.arange(N, device=h.device)
-    valid = idx < total
-    if not occ_cap:
-        return valid, valid.sum()
-    brk = (h[1:] != h[:-1]) | (valid[1:] != valid[:-1])
+def _occ_filter(h: torch.Tensor, *rest: torch.Tensor, occ_cap: int):
+    """Drop equal-hash runs longer than occ_cap from hash-sorted tensors,
+    on their device (occ_cap 0 keeps everything)."""
+    n = h.shape[0]
+    if not occ_cap or not n:
+        return (h, *rest)
+    idx = torch.arange(n, device=h.device)
+    brk = h[1:] != h[:-1]
     one = torch.ones(1, dtype=torch.bool, device=h.device)
     run_start = torch.cummax(torch.where(torch.cat([one, brk]), idx, 0), 0).values
-    last = torch.where(torch.cat([brk, one]), idx, N - 1)
+    last = torch.where(torch.cat([brk, one]), idx, n - 1)
     run_end = torch.cummin(last.flip(0), 0).values.flip(0)  # reverse cummin
-    keep = valid & (run_end - run_start + 1 <= occ_cap)
-    return keep, keep.sum()
-
-
-def _table_fill(h: torch.Tensor, ps: torch.Tensor, keep: torch.Tensor, tag_bits: int,
-                rbits: int) -> torch.Tensor:
-    """The (2^rbits, ROW_SLOTS) packed lookup table from the sorted arrays
-    and their keep-mask: each kept entry goes to row = top rbits of its
-    hash at its rank among the kept entries of that row; ranks past
-    ROW_SLOTS go to a spare row that is dropped.  int32 bit patterns, as
-    ``lookup.build_hash_rows`` gives them."""
-    N = h.shape[0]
-    n_rows = 1 << rbits
-    idx = torch.arange(N, device=h.device)
-    row = h >> (32 - rbits)
-    newrow = torch.cat([torch.ones(1, dtype=torch.bool, device=h.device), row[1:] != row[:-1]])
-    row_start = torch.cummax(torch.where(newrow, idx, 0), 0).values
-    ckeep = torch.cumsum(keep, 0)  # inclusive
-    before = torch.where(row_start > 0, ckeep[(row_start - 1).clamp(min=0)], 0)
-    rank = ckeep - 1 - before
-    ok = keep & (rank < lk.ROW_SLOTS)
-    entries = ((h & ((1 << tag_bits) - 1)) << (32 - tag_bits)) | ps
-    table = torch.zeros((n_rows + 1, lk.ROW_SLOTS), dtype=torch.int32, device=h.device)
-    table.index_put_((torch.where(ok, row, n_rows), torch.where(ok, rank, 0)),
-                     i32_bits(torch.where(ok, entries, 0)))
-    return table[:n_rows]
-
-
-def _device_hash_table(h_sorted: torch.Tensor, ps_sorted: torch.Tensor, total: int,
-                       tag_bits: int, occ_cap: int) -> tuple[torch.Tensor, int]:
-    """The lookup table built where the sorted arrays live, bit-identical
-    to ``lookup.build_hash_rows`` after the host occurrence filter.
-    ``n_kept``, which sizes the rows, is the one scalar read back.
-    Returns (table, n_kept)."""
-    keep, n_kept = _kept_count(h_sorted, ps_sorted, total, occ_cap)
-    n_kept = int(n_kept)
-    return _table_fill(h_sorted, ps_sorted, keep, tag_bits, lk.row_bits_for(n_kept)), n_kept
-
-
-def _host_occ_filter(h: np.ndarray, *rest, occ_cap: int):
-    """Drop equal-hash runs longer than occ_cap from sorted host arrays
-    (occ_cap 0 keeps everything)."""
-    if not occ_cap or not len(h):
-        return (h, *rest)
-    starts = np.flatnonzero(np.concatenate([[True], h[1:] != h[:-1]]))
-    runlen = np.diff(np.concatenate([starts, [len(h)]]))
-    keep = np.repeat(runlen <= occ_cap, runlen)
-    return (h[keep], *(a[keep] for a in rest))
-
-
-class LazyDeviceShard:
-    """An :class:`IndexShard` whose minimizer arrays stay on the card
-    (the one-shard device build) and come to the host, through the host
-    occurrence filter, on first access: artifact save, stacking with
-    other shards.  Classification never needs them, so the card holds
-    only the ``total`` real entries as int32 bit patterns (the
-    reference's uint32 footprint), and drops them once they are fetched."""
-
-    def __init__(self, ref_codes, seq_starts, seq_lengths, seq_accession_id,
-                 pos_accession_id, h_dev, ps_dev, total: int, occ_cap: int):
-        self.ref_codes = ref_codes
-        self.seq_starts = seq_starts
-        self.seq_lengths = seq_lengths
-        self.seq_accession_id = seq_accession_id
-        self.pos_accession_id = pos_accession_id
-        self._h_dev = i32_bits(h_dev[:total])
-        self._ps_dev = ps_dev[:total].to(torch.int32)  # pos << 1 | strand < 2^31
-        self._total, self._occ_cap = total, occ_cap
-        self._host = None
-
-    def _fetch(self):
-        if self._host is None:
-            h = self._h_dev.cpu().numpy().view(np.uint32)
-            ps = self._ps_dev.cpu().numpy().astype(np.int64)
-            h, ps = _host_occ_filter(h, ps, occ_cap=self._occ_cap)
-            self._host = (h, (ps >> 1).astype(np.int32), (ps & 1).astype(np.uint8))
-            self._h_dev = self._ps_dev = None
-        return self._host
-
-    @property
-    def mz_hash(self):
-        return self._fetch()[0]
-
-    @property
-    def mz_pos(self):
-        return self._fetch()[1]
-
-    @property
-    def mz_strand(self):
-        return self._fetch()[2]
-
-    @property
-    def n_minimizers(self):
-        return len(self.mz_hash)
+    keep = run_end - run_start < occ_cap
+    return tuple(a[keep] for a in (h, *rest))
 
 
 def _on_device(device: torch.device) -> bool:
@@ -475,87 +359,50 @@ def _build_shard(
     occ_cap: int,
     sketch_device: torch.device | None,
 ) -> IndexShard:
-    """Pack the member units, sketch (on ``sketch_device`` for a shard of
-    at least _DEV_MIN_SHARD bases, on the host when it is None), stable
-    hash sort, occ cap, per-position accession fill."""
+    """Pack the member units, sketch and sort by (hash, pos) (on
+    ``sketch_device`` for a shard of at least _DEV_MIN_SHARD bases, on
+    the host when it is None), filter by the occurrence cap where the
+    sorted arrays are, fetch them, fill the per-position accession ids."""
     with span("build.pack", units=len(members)):
         packed, pos_acc = _pack(members, units, guard)
-    dev = None
+    mz = None
     if sketch_device is not None and len(packed.codes) >= _DEV_MIN_SHARD:
         with span("build.sketch_sort", bases=len(packed.codes)):
-            dev = _device_sketch_sort(packed.codes, k, w, frac, sketch_device)
-    if dev is not None:
-        h_s, pos_s, strand_s = dev  # already sorted by (hash, pos)
-    else:
+            mz = _device_sketch_sort(packed.codes, k, w, frac, sketch_device)
+    if mz is None:
         with span("build.host_sketch_sort", bases=len(packed.codes)):
             h, pos, strand = sketch_long_sequence(packed.codes, k, w, frac=frac)
             order = np.argsort(h, kind="stable")
-            h_s, pos_s, strand_s = h[order], pos[order], strand[order]
+            mz = (torch.from_numpy(h[order].view(np.int32)), torch.from_numpy(pos[order]),
+                  torch.from_numpy(strand[order]))
     with span("build.occ_filter"):
-        h_s, pos_s, strand_s = _host_occ_filter(h_s, pos_s, strand_s, occ_cap=occ_cap)
+        h_s, pos_s, strand_s = _occ_filter(*mz, occ_cap=occ_cap)
     return IndexShard(
         ref_codes=packed.codes,
         seq_starts=packed.starts,
         seq_lengths=packed.lengths,
         seq_accession_id=packed.seq_accession_id,
-        mz_hash=h_s,
-        mz_pos=pos_s.astype(np.int32),
-        mz_strand=strand_s,
+        mz_hash=h_s.cpu().numpy().view(np.uint32),
+        mz_pos=pos_s.to(torch.int32).cpu().numpy(),
+        mz_strand=strand_s.cpu().numpy(),
         pos_accession_id=pos_acc,
     )
-
-
-def _build_shard_device(members, units, k, w, guard, frac, occ_cap, device):
-    """The one-shard build on ``device``: pack on the host, then sketch,
-    sort and fill the hash table on the device.  Returns
-    (LazyDeviceShard, table, tag_bits), or None when the reference is
-    shorter than k or a segment overflows (the caller builds on the
-    host)."""
-    with span("build.pack", units=len(members)):
-        packed, pos_acc = _pack(members, units, guard)
-    with span("build.sketch_sort", bases=len(packed.codes)):
-        got = _device_sketch_sort_arrays(packed.codes, k, w, frac, device)
-    if got is None:
-        return None
-    h_dev, ps_dev, total = got
-    tag_bits = lk.tag_bits_for(len(packed.codes))
-    with span("build.table"):
-        table, _n_kept = _device_hash_table(h_dev, ps_dev, total, tag_bits, occ_cap)
-    _count_route("device_table")
-    shard = LazyDeviceShard(
-        ref_codes=packed.codes,
-        seq_starts=packed.starts,
-        seq_lengths=packed.lengths,
-        seq_accession_id=packed.seq_accession_id,
-        pos_accession_id=pos_acc,
-        h_dev=h_dev, ps_dev=ps_dev, total=total, occ_cap=occ_cap,
-    )
-    return shard, table, tag_bits
 
 
 def _build_shards_threaded(assignment, units, k, w, guard, frac, occ_cap,
-                           device: torch.device) -> tuple[list, list | None]:
-    """Build the shards -> (shards, BuiltIndex.device).  A one-shard build
-    on the device route runs wholly on the device.  Otherwise one thread
-    per shard (at most 8): _build_shard is pure, and the torch sketch
-    and numpy's large array ops release the GIL, so the shards' sketch
-    chains overlap.  Each shard is the same as from a serial build."""
+                           device: torch.device) -> list[IndexShard]:
+    """Build the shards, one thread per shard (at most 8): _build_shard
+    is pure, and the torch sketch and numpy's large array ops release
+    the GIL, so the shards' sketch chains overlap.  Each shard is the
+    same as from a serial build."""
     sketch_device = device if _on_device(device) else None
-    if len(assignment) == 1 and sketch_device is not None:
-        out = _build_shard_device(assignment[0], units, k, w, guard, frac, occ_cap, device)
-        if out is not None:
-            shard, table, tag_bits = out
-            return [shard], [(table, tag_bits)]
-        # the overflow route: the whole shard on the host (the device
-        # sketch would overflow again)
-        sketch_device = None
     if len(assignment) <= 1:
         return [_build_shard(m, units, k, w, guard, frac, occ_cap, sketch_device)
-                for m in assignment], None
+                for m in assignment]
     with ThreadPoolExecutor(max_workers=min(len(assignment), 8)) as pool:
         return list(pool.map(
             lambda m: _build_shard(m, units, k, w, guard, frac, occ_cap, sketch_device),
-            assignment)), None
+            assignment))
 
 
 def _build(units, n_shards, max_shard_bytes, k, w, guard, frac, occ_cap, device):
@@ -603,8 +450,8 @@ def build_index(
         genome_lengths=genome_lengths,
         k=k, w=w, frac=frac, occ_cap=occ_cap,
     )
-    shards, dev = _build(units, n_shards, max_shard_bytes, k, w, guard, frac, occ_cap, device)
-    return BuiltIndex(meta=meta, shards=shards, device=dev)
+    return BuiltIndex(meta=meta, shards=_build(units, n_shards, max_shard_bytes, k, w, guard,
+                                               frac, occ_cap, device))
 
 
 def build_index_from_arrays(
@@ -634,15 +481,13 @@ def build_index_from_arrays(
     )
     with span("build.segment", genomes=n):
         units = _segment_records([[np.asarray(s, dtype=np.uint8)] for s in seqs])
-    shards, dev = _build(units, n_shards, max_shard_bytes, k, w, guard, frac, occ_cap, device)
-    return BuiltIndex(meta=meta, shards=shards, device=dev)
+    return BuiltIndex(meta=meta, shards=_build(units, n_shards, max_shard_bytes, k, w, guard,
+                                               frac, occ_cap, device))
 
 
 def merge_built(parts: list[BuiltIndex]) -> BuiltIndex:
     """Combine independently built or cached index groups (guests,
-    hosts) into one index, re-basing accession ids per part.  A merge of
-    several parts keeps no device tables: the Classifier stacks its
-    shards."""
+    hosts) into one index, re-basing accession ids per part."""
     parts = [p for p in parts if p is not None]
     if len(parts) == 1:
         return parts[0]

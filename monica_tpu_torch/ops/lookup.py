@@ -4,10 +4,11 @@
 Same direct-addressed bucketed hash table: 2^rbits rows indexed by the
 TOP rbits of the minimizer hash, ROW_SLOTS packed entries per row
 ``(tag << payload_bits) | (pos << 1) | strand`` with the LOW tag_bits
-of the hash as the verification tag, 0 = empty slot.  One row gather
-per seed.  The table is stored as the int32 bit pattern of the
-reference's uint32 entries (4 B/entry on the device) and widened to
-int64 u32 values after the gather.
+of the hash as the verification tag, 0 = empty slot, filled on the
+device by ``fill_hash_rows``.  One row gather per seed.  The table is
+stored as the int32 bit pattern of the reference's uint32 entries
+(4 B/entry on the device) and widened to int64 u32 values after the
+gather.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from monica_tpu_torch._u32 import u32
+from monica_tpu_torch._u32 import i32_bits, u32
 from monica_tpu_torch.index.minimizer import INVALID_HASH
 
 DIAG_SHIFT = 8  # 256-base diagonal bins
@@ -37,38 +38,37 @@ def tag_bits_for(ref_len: int) -> int:
     return tb
 
 
-def pack_entries(mz_hash, mz_pos, mz_strand, tag_bits: int) -> np.ndarray:
-    """Host-side: parallel arrays -> packed uint32 entries."""
-    payload_bits = 32 - tag_bits
-    tag = mz_hash.astype(np.uint32) & np.uint32((1 << tag_bits) - 1)
-    ps = (mz_pos.astype(np.uint32) << 1) | mz_strand.astype(np.uint32)
-    if len(mz_pos) and int(mz_pos.max()) >= 1 << (payload_bits - 1):
-        raise ValueError("positions overflow payload bits")
-    return ((tag << np.uint32(payload_bits)) | ps).astype(np.uint32)
-
-
 def row_bits_for(n_entries: int) -> int:
     """rows = 2^rbits with load factor n/2^rbits in (1, 2]."""
     return max(int(np.ceil(np.log2(max(n_entries, 2)))) - 1, 1)
 
 
-def build_hash_rows(
-    mz_hash, mz_pos, mz_strand, tag_bits: int, rbits: int | None = None
-) -> np.ndarray:
-    """Host-side: hash-SORTED parallel arrays -> (2^rbits, ROW_SLOTS)
-    uint32 table; entries beyond ROW_SLOTS per row are dropped."""
-    rbits = rbits if rbits is not None else row_bits_for(len(mz_hash))
+def fill_hash_rows(mz_hash: torch.Tensor, mz_pos: torch.Tensor, mz_strand: torch.Tensor,
+                   tag_bits: int, rbits: int) -> torch.Tensor:
+    """A shard's hash-SORTED parallel arrays (hash as u32 values or
+    their int32 bit pattern, pos, strand) -> its (2^rbits, ROW_SLOTS)
+    table of int32 entry bit patterns, on the arrays' device.  Each
+    entry goes to row = top rbits of its hash at its rank in that row;
+    ranks past ROW_SLOTS go to a spare row that is dropped.  The only
+    writer of the entry format that ``lookup_anchors`` reads."""
+    payload_bits = 32 - tag_bits
     n_rows = 1 << rbits
-    table = np.zeros((n_rows, ROW_SLOTS), dtype=np.uint32)
-    if not len(mz_hash):
-        return table
-    entries = pack_entries(mz_hash, mz_pos, mz_strand, tag_bits)
-    row = (mz_hash.astype(np.uint64) >> np.uint64(32 - rbits)).astype(np.int64)
-    first = np.searchsorted(row, np.arange(n_rows, dtype=np.int64))
-    rank = np.arange(len(row)) - first[row]
-    keep = rank < ROW_SLOTS
-    table[row[keep], rank[keep]] = entries[keep]
-    return table
+    dev = mz_hash.device
+    table = torch.zeros((n_rows + 1, ROW_SLOTS), dtype=torch.int32, device=dev)
+    if mz_hash.shape[0]:
+        pos = mz_pos.to(torch.int64)
+        if int(pos.max()) >= 1 << (payload_bits - 1):
+            raise ValueError("positions overflow payload bits")
+        h = u32(mz_hash)
+        row = h >> (32 - rbits)
+        first = torch.searchsorted(row, torch.arange(n_rows, device=dev))
+        rank = torch.arange(row.shape[0], device=dev) - first[row]
+        ok = rank < ROW_SLOTS
+        entries = (((h & ((1 << tag_bits) - 1)) << payload_bits) | (pos << 1)
+                   | mz_strand.to(torch.int64))
+        table.index_put_((torch.where(ok, row, n_rows), torch.where(ok, rank, 0)),
+                         i32_bits(entries))
+    return table[:n_rows]
 
 
 def lookup_anchors(

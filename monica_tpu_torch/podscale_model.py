@@ -363,7 +363,7 @@ def share_run(device, *, genome_len: int, max_shard_bytes: int, batch: int, n_ba
     seqs = draw_genomes(gen, g, genome_len)
     built1 = build_index_from_arrays(seqs, max_shard_bytes=max_shard_bytes, device=dev)
     clf1 = rt.Classifier(built1, PARAMS, count_mode="basic", device=dev)
-    shard_bytes_1 = pl.stacked_nbytes((clf1.index,))
+    shard_bytes_1 = pl.stacked_nbytes(clf1.index)
     sh = built1.shards[0]
     host_shard_bytes = sh.ref_codes.nbytes + sh.pos_accession_id.nbytes + 9 * sh.n_minimizers
     bench.sync(dev)

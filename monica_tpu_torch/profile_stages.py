@@ -11,8 +11,8 @@ by enabling its stages one after another, each variant through
     sketch        sketch_batch
     +lookup       + lookup_anchors
     +chain        + chain_votes
-    full(noext)   classify_batch without extension
-    full(rescue)  classify_batch
+    full(noext)   classify_batch_grouped without extension
+    full(rescue)  classify_batch_grouped
 
 Every output of every variant is summed into one live float32 scalar
 (:func:`live`), as the JAX script's ``live()`` keeps every stage output
@@ -68,11 +68,12 @@ def live(out) -> torch.Tensor:
 
 
 def stages(index, params, n_acc) -> dict:
-    """The five cumulative variants: name -> f(codes, lengths)."""
+    """The five cumulative variants over a one-shard index (one group of
+    one): name -> f(codes, lengths)."""
     noext = params._replace(extend=False)
 
     def lookup(c, l):
-        return lk.lookup_anchors(index.mz_rows, *pl.sketch_batch(c, l, params),
+        return lk.lookup_anchors(index[0].mz_rows[0], *pl.sketch_batch(c, l, params),
                                  tag_bits=params.tag_bits, bucket_len=c.shape[1],
                                  anchors_per_seed=params.anchors_per_seed)
 
@@ -80,8 +81,8 @@ def stages(index, params, n_acc) -> dict:
         "sketch": lambda c, l: pl.sketch_batch(c, l, params),
         "+lookup": lookup,
         "+chain": lambda c, l: ch.chain_votes(*lookup(c, l)),
-        "full(noext)": lambda c, l: pl.classify_batch(index, c, l, noext, n_acc),
-        "full(rescue)": lambda c, l: pl.classify_batch(index, c, l, params, n_acc),
+        "full(noext)": lambda c, l: pl.classify_batch_grouped(index, c, l, noext, n_acc),
+        "full(rescue)": lambda c, l: pl.classify_batch_grouped(index, c, l, params, n_acc),
     }
 
 
@@ -125,8 +126,8 @@ def main(argv=None) -> int:
     t0 = time.time()
     seqs, _ = bench.genomes("small" if args.small else "zymo", rng, sizes["scale"])
     built = build_index_from_arrays(seqs, n_shards=1, device=dev)
-    _, index, params, n_acc = bench.prepare(built, dev)
-    print(f"build {time.time() - t0:.1f}s rows={tuple(index.mz_rows.shape)}", flush=True)
+    index, params, n_acc = bench.prepare(built, dev)
+    print(f"build {time.time() - t0:.1f}s rows={tuple(index[0].mz_rows.shape[1:])}", flush=True)
 
     codes = bench.make_reads(seqs, rng, batch * n_batches).reshape(n_batches, batch, READ_LEN)
     cd, ld = bench.resident(codes, np.full((n_batches, batch), READ_LEN, np.int32), dev)

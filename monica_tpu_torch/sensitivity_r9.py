@@ -7,7 +7,7 @@ Per error profile and read length it measures:
   candidates, how many of them the static B/8 budget would leave out,
   and which adaptive tier (skip, B/8, B/2, B) each batch takes
   (``measure_saturation``, the host mirror of the candidacy in
-  ``pipeline.classify_shard``);
+  ``pipeline.classify_group``);
 * accuracy and precision through ``evaluation.evaluate`` for the default
   settings and two ablations: ``rescue_min_votes=2`` (no single-anchor
   rescue) and ``rescue_min_cov=0`` (no coverage floor).
@@ -52,8 +52,10 @@ def measure_saturation(built, seqs, params, error, read_len: int, n_reads: int, 
                        device) -> dict:
     """Rescue-slot demand per batch of simulated reads (seed 5): the
     sketch, seed lookup, chain votes and mapq on ``device``, then the
-    candidacy and the tier pick of ``pipeline.classify_shard`` counted on
+    candidacy and the tier pick of ``pipeline.classify_group`` counted on
     the host."""
+    if len(built.shards) != 1:
+        raise ValueError("measure_saturation takes a one-shard index")
     rng = np.random.default_rng(5)
     sub, ins, dele = error
     labels = rng.integers(0, len(seqs), n_reads)
@@ -66,8 +68,6 @@ def measure_saturation(built, seqs, params, error, read_len: int, n_reads: int, 
         lens[i] = len(r)
 
     clf = rt.Classifier(built, params, device=device)
-    if not isinstance(clf.index, pl.DeviceIndexShard):
-        raise ValueError("measure_saturation takes a one-shard index")
     p = pl.params_for_bucket(clf.params, read_len)
     tiers = {"skip": 0, "b8": 0, "b2": 0, "full": 0}
     n_cand_total = 0
@@ -78,7 +78,7 @@ def measure_saturation(built, seqs, params, error, read_len: int, n_reads: int, 
         lj = torch.from_numpy(lens[sl]).to(device)
         qh, qp, qs, qv = pl.sketch_batch(cj, lj, p)
         key, diag, rpos, fpos = lk.lookup_anchors(
-            clf.index.mz_rows, qh, qp, qs, qv, tag_bits=p.tag_bits, bucket_len=read_len,
+            clf.index[0].mz_rows[0], qh, qp, qs, qv, tag_bits=p.tag_bits, bucket_len=read_len,
             anchors_per_seed=p.anchors_per_seed)
         res = ch.chain_votes(key, diag, rpos, fpos, max_run=min(128, p.n_slots))
         mapq = ch.mapq_from_votes(res.f1, res.f2)

@@ -122,13 +122,14 @@ def test_artifacts_load_across_packages(tmp_path, n_shards):
 
 
 def test_device_built_index_saves_the_host_arrays(tmp_path, monkeypatch):
-    """A one-shard build on the device route (LazyDeviceShard) saves the
-    same artifact as the host build."""
-    seqs = _seqs(6, 1 << 19, 2)
+    """A one-shard build on the device route (sketched and sorted on the
+    device, then fetched) saves the same artifact as the host build."""
+    seqs = _seqs(6, 1 << 20, 2)
     host = build.build_index_from_arrays(seqs, device="cpu")
     monkeypatch.setattr(build, "_on_device", lambda device: True)
+    build.reset_build_routes()
     dev = build.build_index_from_arrays(seqs, device="cpu")
-    assert dev.device is not None and isinstance(dev.shards[0], build.LazyDeviceShard)
+    assert build.BUILD_ROUTES == {"device_sketch_sort": 1, "overflow": 0}
     artifact.save_index(dev, tmp_path)
     _assert_same(artifact.load_index(tmp_path), host)
     _assert_same(ref_artifact.load_index(tmp_path), host)
@@ -153,8 +154,7 @@ def test_list_and_register_outside_indexes(tmp_path):
 
 
 def test_merge_built_equals_reference():
-    """Accession ids re-based per part; the merged index keeps no device
-    tables; a single part passes through."""
+    """Accession ids re-based per part; a single part passes through."""
     parts_seqs = [_seqs(8, 20_000, 2), _seqs(9, 15_000, 3)]
     port = [build.build_index_from_arrays(s, tax_units=[f"T{j}_{i}" for i in range(len(s))],
                                           device="cpu")
@@ -163,7 +163,6 @@ def test_merge_built_equals_reference():
            for j, s in enumerate(parts_seqs)]
     merged = build.merge_built(port + [None])
     _assert_same(merged, ref_build.merge_built(ref))
-    assert merged.device is None
     assert int(merged.shards[1].pos_accession_id.max()) == 4
     assert build.merge_built([port[0]]) is port[0]
     other = build.build_index_from_arrays(parts_seqs[0], k=13, device="cpu")

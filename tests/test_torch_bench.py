@@ -122,10 +122,10 @@ def test_runner_equals_jax_scan(world, case):
     want_total, want = run_all(index, jnp.asarray(codes), jnp.asarray(lengths))
 
     built = build_index_from_arrays(seqs, n_shards=n_shards, device="cpu")
-    step, idx, p, n = bench.prepare(built, "cpu", extend, anchors)
+    idx, p, n = bench.prepare(built, "cpu", extend, anchors)
     assert n == n_acc and p.n_slots == params.n_slots and p.tag_bits == params.tag_bits
     cd, ld = bench.resident(codes, lengths, "cpu")
-    dts, total, results, statuses = bench.run_all(step, idx, p, n, cd, ld, reps=1)
+    dts, total, results, statuses = bench.run_all(idx, p, n, cd, ld, reps=1)
     assert len(dts) == 1 and len(results) == R
     np.testing.assert_array_equal(total.numpy(), np.asarray(want_total))
     np.testing.assert_array_equal(statuses, np.asarray(want.status))

@@ -1,5 +1,5 @@
 """The port's host index build is bit-equal to the reference host build,
-and its device tables equal the reference's device_shard arrays."""
+and its stacked device tables equal the reference's device_shard arrays."""
 
 import numpy as np
 import pytest
@@ -74,19 +74,23 @@ def test_segmenting_and_assignment_match(monkeypatch):
 
 
 def test_device_shard_matches_reference_and_convert():
+    """A one-shard index stacks as one group of one whose arrays equal
+    the reference's device_shard arrays, and convert's group of them."""
     seqs = _genomes(seed=1, n=3, length=20_000)
     ref_built = ref_build.build_index_from_arrays(seqs)
     ref_dev, ref_tb = ref_pl.device_shard(ref_built.shards[0])
     port_built = convert.built_from_reference(ref_built)
     _assert_same_index(ref_built, port_built)
-    dev, tb = pl.device_shard(port_built.shards[0], "cpu")
+    (dev,), tb = pl.stack_device_shard_groups(port_built.shards, "cpu")
     assert tb == ref_tb
-    conv = convert.device_shard_from_reference(ref_dev.mz_rows, ref_dev.pos_acc,
-                                               ref_dev.ref_codes, "cpu")
+    (conv,) = convert.groups_from_reference(
+        [pl.DeviceIndexShard(*(np.asarray(a)[None] for a in ref_dev))], "cpu")
     for name in pl.DeviceIndexShard._fields:
         np.testing.assert_array_equal(getattr(dev, name).numpy(), getattr(conv, name).numpy())
-    np.testing.assert_array_equal(dev.mz_rows.numpy().view(np.uint32), np.asarray(ref_dev.mz_rows))
-    np.testing.assert_array_equal(dev.pos_acc.numpy(), np.asarray(ref_dev.pos_acc).astype(np.int32))
+    np.testing.assert_array_equal(dev.mz_rows[0].numpy().view(np.uint32),
+                                  np.asarray(ref_dev.mz_rows))
+    np.testing.assert_array_equal(dev.pos_acc[0].numpy(),
+                                  np.asarray(ref_dev.pos_acc).astype(np.int32))
     assert dev.pos_acc.dtype == torch.int32 and dev.mz_rows.dtype == torch.int32
 
 

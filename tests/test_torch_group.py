@@ -1,8 +1,8 @@
 """The batched step over a stacked size-class group
 (``pipeline.classify_group``: one lookup, one chain, one rescue tier
 over the pool of S·B (shard, read) rows, one SW call) against a loop of
-one-shard steps (``classify_shard``) on slices of the same stack, field
-by field for every ShardHit field.
+one-shard steps (``classify_group`` on a stack of one) on slices of the
+same stack, field by field for every ShardHit field.
 
 Each shard holds one copy of a base genome (1% substitutions, rotated,
 shortened by 97 bases a shard, so the stack pads the shorter ones), so
@@ -90,11 +90,10 @@ def test_group_step_equals_one_shard_steps(world, monkeypatch, S, mode, err, tie
     # one SW call a group, on the pool's tier (full: every row)
     N = S * B
     assert rows == [int(N * params.rescue_frac) if tier == 8 else N // tier]
-    want = [pl.classify_shard(pl.DeviceIndexShard(group.mz_rows[s], group.pos_acc[s],
-                                                  group.ref_codes[s]),
+    want = [pl.classify_group(pl.DeviceIndexShard(*(t[s : s + 1] for t in group)),
                               codes, lengths, params) for s in range(S)]
     for f in pl.ShardHit._fields:
-        a, b = getattr(got, f), torch.stack([getattr(w, f) for w in want])
+        a, b = getattr(got, f), torch.cat([getattr(w, f) for w in want])
         assert a.shape == (S, B) and a.dtype == b.dtype, f
         assert torch.equal(a, b), f
     if tier < 8:  # the SW's answers are used in every shard, the end reads' too

@@ -143,7 +143,14 @@ def test_host_table_helpers_match_reference(setup):
     st = rng.integers(0, 2, 5000).astype(np.uint8)
     assert lk.tag_bits_for(70_000) == ref_lk.tag_bits_for(70_000)
     assert lk.row_bits_for(5000) == ref_lk.row_bits_for(5000)
-    np.testing.assert_array_equal(lk.pack_entries(h, pos, st, 12),
-                                  ref_lk.pack_entries(h, pos, st, 12))
-    np.testing.assert_array_equal(lk.build_hash_rows(h, pos, st, 12),
-                                  ref_lk.build_hash_rows(h, pos, st, 12))
+    arrays = (torch.from_numpy(h.view(np.int32)), torch.from_numpy(pos), torch.from_numpy(st))
+    for rbits in (lk.row_bits_for(5000), 3):  # 3: most entries past a row's slots
+        np.testing.assert_array_equal(lk.fill_hash_rows(*arrays, 12, rbits).numpy().view(np.uint32),
+                                      ref_lk.build_hash_rows(h, pos, st, 12, rbits))
+    # no entries: an empty table
+    assert not lk.fill_hash_rows(*(a[:0] for a in arrays), 12, 4).any()
+    # a position past the payload's bits, as pack_entries refuses it
+    with pytest.raises(ValueError, match="positions overflow payload bits"):
+        ref_lk.pack_entries(h, pos, st, 16)
+    with pytest.raises(ValueError, match="positions overflow payload bits"):
+        lk.fill_hash_rows(*arrays, 16, 4)

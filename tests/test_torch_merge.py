@@ -75,6 +75,35 @@ def test_merge_takes_the_first_of_exactly_tied_shards():
     np.testing.assert_array_equal(np.asarray(ref_merge(ref_hits, 0.1, 1.0).mlen), got.mlen.numpy())
 
 
+@pytest.mark.parametrize("count_mode", [pl.MODE_BASIC, pl.MODE_QUERY_LENGTH, pl.MODE_MATCHING])
+@pytest.mark.parametrize("bands", [(0.10, 1.0), (0.0, 0.0)])
+def test_merge_and_count_of_one_shard_equals_merge_hits(monkeypatch, bands, count_mode):
+    """At S = 1 ``merge_and_count`` takes ``finalize_single``: every
+    ReadResult field and the counts equal ``merge_hits``' at S = 1 on
+    random, tie-rich hits (some reads both passed and tied)."""
+    tol, sd = bands
+    rng = np.random.default_rng(7 + int(10 * tol + sd))
+    B, n_acc = 4000, 4
+    _, hits = _both(random_shard_hits(rng, 1, B, tol, sd))
+    assert bool((hits.passed & hits.tied).any())
+    lengths = torch.from_numpy(rng.integers(0, 30_000, B).astype(np.int32))
+    params = pl.ClassifyParams(tie_rel_tol=tol, vote_tie_sd=sd)
+    want = pl.merge_hits(hits, tol, sd)
+    want_c = pl.count_reads(want, lengths, n_acc, count_mode)
+    took = []
+    for name in ("finalize_single", "merge_hits"):
+        monkeypatch.setattr(pl, name, lambda *a, _f=getattr(pl, name), _n=name, **k:
+                            took.append(_n) or _f(*a, **k))
+    got, got_c = pl.merge_and_count(hits, lengths, params, n_acc, count_mode)
+    assert took == ["finalize_single"]
+    for f in pl.ReadResult._fields:
+        a, b = getattr(want, f), getattr(got, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert torch.equal(want_c, got_c)
+    st = got.status.numpy()
+    assert (st == pl.AMBIGUOUS).sum() > 100 and (st == pl.MAPPED).sum() > 100
+
+
 @pytest.fixture(scope="module")
 def skewed():
     """Four shards of a skewed split over two size classes: three of

@@ -1,5 +1,6 @@
-"""Single-shard classification in the PyTorch port (CPU, plain kernels)
-against the JAX reference on one converted index.
+"""Single-shard classification in the PyTorch port (CPU, plain kernels):
+the one step, ``classify_batch_grouped``, on a converted one-shard index
+(one group of one) against the JAX reference's ``classify_batch``.
 
 Tolerances: status, acc_id and counts bit-equal, and mlen wherever it
 comes from banded SW.  Where mlen comes from the float vote estimate it
@@ -36,8 +37,8 @@ def index():
     seqs[1][SHARED] = seqs[0][SHARED]
     built = ref_build(seqs)
     ref_dev, tag_bits = ref_pl.device_shard(built.shards[0])
-    dev = convert.device_shard_from_reference(ref_dev.mz_rows, ref_dev.pos_acc,
-                                              ref_dev.ref_codes, "cpu")
+    dev = convert.groups_from_reference(
+        [pl.DeviceIndexShard(*(np.asarray(a)[None] for a in ref_dev))], "cpu")
     return dict(seqs=seqs, built=built, ref_dev=ref_dev, dev=dev, tag_bits=tag_bits)
 
 
@@ -67,9 +68,9 @@ def _run_both(index, codes, lengths, extend_mode, count_mode):
                                          jnp.asarray(lengths), ref_params, N_ACC, count_mode)
     params = convert.params_from_reference(ref_params)
     tc, tl = torch.from_numpy(codes), torch.from_numpy(lengths)
-    got, got_c = pl.classify_batch(index["dev"], tc, tl, params, N_ACC, count_mode)
-    hit = pl.classify_shard(index["dev"], tc, tl, params)
-    vote_pass = ((hit.mapq >= params.mapping_quality) & (hit.votes >= params.min_votes)).numpy()
+    got, got_c = pl.classify_batch_grouped(index["dev"], tc, tl, params, N_ACC, count_mode)
+    hit = pl.classify_group(index["dev"][0], tc, tl, params)
+    vote_pass = ((hit.mapq >= params.mapping_quality) & (hit.votes >= params.min_votes))[0].numpy()
     want = {f: np.asarray(getattr(want, f)) for f in ref_pl.ReadResult._fields}
     got = {f: getattr(got, f).numpy() for f in pl.ReadResult._fields}
     return want, np.asarray(want_c), got, got_c.numpy(), vote_pass

@@ -41,7 +41,7 @@ def world():
     ref = ref_build(seqs, n_shards=1)
     dev, tb = ref_pl.device_shard(ref.shards[0])
     built = build_index_from_arrays(seqs, n_shards=1, device="cpu")
-    _, index, params, n_acc = bench.prepare(built, "cpu")
+    index, params, n_acc = bench.prepare(built, "cpu")
     return dict(codes=codes, lengths=lengths, ref_dev=dev, tag_bits=tb, n_acc=n_acc,
                 index=index, params=params)
 

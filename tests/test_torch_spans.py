@@ -64,8 +64,6 @@ def _base(name):
 def _groups(clf):
     """The index's size-class groups, each a list of its shards (a
     one-shard index: one group of one)."""
-    if isinstance(clf.index, pl.DeviceIndexShard):
-        return [[clf.index]]
     return [[pl.DeviceIndexShard(g.mz_rows[s], g.pos_acc[s], g.ref_codes[s])
              for s in range(g.mz_rows.shape[0])] for g in clf.index]
 
@@ -113,31 +111,27 @@ def test_classify_and_fetch_open_their_spans(world, n_shards, count_mode):
     parents = {}
     for name, parent in found:
         parents.setdefault(_base(name), set()).add(None if parent is None else _base(parent))
-    shard_or_pipeline = {"shard"} if n_shards > 1 else {"pipeline"}
+    # one index form: a one-shard index is one group of one
     want = {"classify": {None}, "pack": {"classify"}, "upload": {"classify"},
             "pipeline": {"classify"}, "unpack": {"pipeline"}, "sketch": {"pipeline"},
-            "lookup": shard_or_pipeline, "chain": shard_or_pipeline,
+            "shard": {"pipeline"}, "lookup": {"shard"}, "chain": {"shard"},
             "merge": {"pipeline"}, "count": {"pipeline"},
             "fetch": {None}, "pack_results": {"fetch"}, "copy": {"fetch"}, "split": {"fetch"}}
-    if n_shards > 1:
-        want["shard"] = {"pipeline"}
     if count_mode == "query_length":
-        want["rescue_pick"] = shard_or_pipeline
-        want["rescue"] = shard_or_pipeline
+        want["rescue_pick"] = {"shard"}
+        want["rescue"] = {"shard"}
     else:
-        want["extend"] = shard_or_pipeline
+        want["extend"] = {"shard"}
     assert parents == want
 
     names = [n for n, _ in found]
     B, L = codes.shape
     assert f"monica.classify rows={B} len={L}" in names
-    assert [n for n in names if _base(n) == "merge"] == [
-        "monica.merge" if n_shards == 1 else f"monica.merge shards={n_shards}"]
+    assert [n for n in names if _base(n) == "merge"] == [f"monica.merge shards={n_shards}"]
     # one span a size-class group, counting its shards
     shards = sorted(n for n in names if _base(n) == "shard")
-    assert shards == ([] if n_shards == 1 else
-                      sorted(f"monica.shard group={g} shards={len(grp)}"
-                             for g, grp in enumerate(_groups(clf))))
+    assert shards == sorted(f"monica.shard group={g} shards={len(grp)}"
+                            for g, grp in enumerate(_groups(clf)))
     rescues = [n for n in names if _base(n) == "rescue"]
     if count_mode == "query_length":
         tiers = _rescue_tiers(clf, codes, lengths)
@@ -157,7 +151,7 @@ def test_no_profiler_no_record_function(world, monkeypatch, n_shards):
         raise AssertionError("record_function entered without a profiler")
 
     monkeypatch.setattr(metrics, "record_function", refuse)
-    # the set-up's spans (index_upload, stack.rows, stack.copy) stay off too
+    # the set-up's spans (index_upload, stack.copy, stack.fill) stay off too
     clf = rt.Classifier(world["built"][n_shards], device="cpu")
     got = clf.fetch(*clf.classify(world["codes"], world["lengths"]))
     for a, b in zip(want, got):
@@ -182,7 +176,7 @@ def test_span_names_carry_counts_and_stages_open_spans():
     assert m.summary()["parse:my sample"]["items"] == 3
 
 
-@pytest.mark.parametrize("n_shards", [2, 3])
+@pytest.mark.parametrize("n_shards", [1, 2, 3])
 def test_stacking_counts_its_groups_bytes_and_shards(world, n_shards):
     built = world["built"][n_shards]
     plain = rt.Classifier(built, device="cpu")
@@ -205,18 +199,18 @@ def test_stacking_counts_its_groups_bytes_and_shards(world, n_shards):
             spans.setdefault(_base(e.name), []).append(
                 (dict(kv.split("=") for kv in e.name.split(" ")[1:]),
                  None if p is None else _base(p.name)))
-    assert set(spans) == {"index_upload", "stack.rows", "stack.copy"}
+    assert set(spans) == {"index_upload", "stack.copy", "stack.fill"}
     # the groups and bytes recomputed from the stacked tensors themselves
     assert spans["index_upload"] == [({"shards": str(len(built.shards)),
                                        "groups": str(len(clf.index)),
                                        "bytes": str(pl.stacked_nbytes(clf.index))}, None)]
-    assert len(clf.index) == n_shards - 1  # 3 shards: two size classes
-    rows, copies = spans["stack.rows"], spans["stack.copy"]
-    assert len(rows) == len(copies) == len(built.shards)
-    assert sum(int(c["shards"]) for c, _ in rows) == len(built.shards)
-    assert {p for _, p in rows + copies} == {"index_upload"}
-    # each shard's table at its group's width, its positions as int32, its codes
-    copied = sum(g.mz_rows[s].numel() * 4 + len(sh.pos_accession_id) * 4 + len(sh.ref_codes)
-                 for g, shards in zip(clf.index, pl.size_classes(built.shards))
-                 for s, sh in enumerate(shards))
+    assert len(clf.index) == max(n_shards - 1, 1)  # 3 shards: two size classes
+    fills, copies = spans["stack.fill"], spans["stack.copy"]
+    assert len(fills) == len(copies) == len(built.shards)
+    assert sum(int(c["shards"]) for c, _ in fills) == len(built.shards)
+    assert {p for _, p in fills + copies} == {"index_upload"}
+    # each shard's sorted minimizer arrays (4 + 4 + 1 B an entry), its
+    # positions as int32, its codes
+    copied = sum(9 * sh.n_minimizers + len(sh.pos_accession_id) * 4 + len(sh.ref_codes)
+                 for sh in built.shards)
     assert sum(int(c["bytes"]) for c, _ in copies) == copied
